@@ -1,0 +1,99 @@
+"""Adaptive query batching — paper §III-A, Algorithms 1 and 2; a copy of
+the reference's core/batching.py cut to what the scan path calls.
+
+After each batch the observed (runtime T_i, result count r_i) adapt the
+next one:
+
+    k_{i+1} <- c * k_i
+    That_{i+1} <- k_{i+1} * (T_i / r_i)
+    if That > T_max:  k_{i+1} <- T_max * (r_i / T_i)
+    elif That < T_min: k_{i+1} <- T_min * (r_i / T_i)
+    b_{i+1} <- min(k_{i+1} * (b_i / r_i), t_stop - p_i)
+    p_{i+1} <- p_i + b_i + eps
+
+On r_i == 0 k is kept and b grows geometrically by c.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Tuple
+
+DEFAULT_K0 = 10.0
+DEFAULT_C = 1.5
+DEFAULT_T_MAX = 30.0
+DEFAULT_T_MIN = 1.0
+DEFAULT_EPS = 1
+
+
+def alg1_next_k(
+    k: float, runtime: float, rows: int, c: float, t_max: float, t_min: float
+) -> float:
+    """The Alg-1 UPDATE law for the desired result count. rows == 0 keeps
+    k (the rate is unobservable)."""
+    t_i = max(float(runtime), 1e-9)
+    if rows <= 0:
+        return float(k)
+    k_next = c * k
+    t_hat = k_next * (t_i / rows)
+    if t_hat > t_max:
+        k_next = t_max * (rows / t_i)
+    elif t_hat < t_min:
+        k_next = t_min * (rows / t_i)
+    return float(k_next)
+
+
+@dataclass
+class BatchRecord:
+    index: int
+    p: float
+    b: float
+    k: float
+    runtime: float = 0.0
+    rows: int = 0
+
+
+@dataclass
+class AdaptiveBatcher:
+    """Algorithm 1 state machine. One instance per executing query."""
+
+    t_start: float
+    t_stop: float
+    b0: float
+    k0: float = DEFAULT_K0
+    c: float = DEFAULT_C
+    t_max: float = DEFAULT_T_MAX
+    t_min: float = DEFAULT_T_MIN
+    eps: float = DEFAULT_EPS
+    history: List[BatchRecord] = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.t_stop < self.t_start:
+            raise ValueError("t_stop < t_start")
+        self._p = float(self.t_start)
+        self._k = float(self.k0)
+        self._b = max(min(float(self.b0), self.t_stop - self._p), self.eps)
+        self._i = 0
+
+    @property
+    def done(self) -> bool:
+        return self._p > self.t_stop if self._i > 0 else False
+
+    def next_range(self) -> Tuple[float, float]:
+        """Time range [p_i, p_i + b_i] for the next batch (inclusive)."""
+        return self._p, min(self._p + self._b, self.t_stop)
+
+    def update(self, runtime: float, rows: int) -> None:
+        """Alg 1 UPDATE(T_i, r_i)."""
+        rec = BatchRecord(self._i, self._p, self._b, self._k, runtime, rows)
+        self.history.append(rec)
+        if rows > 0:
+            k_next = alg1_next_k(self._k, runtime, rows, self.c, self.t_max, self.t_min)
+            b_next = k_next * (self._b / rows)
+        else:
+            k_next = self._k
+            b_next = self._b * self.c
+        b_next = min(b_next, self.t_stop - self._p)
+        self._p = self._p + self._b + self.eps
+        self._b = max(b_next, self.eps)
+        self._k = max(k_next, 1.0)
+        self._i += 1

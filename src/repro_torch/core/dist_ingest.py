@@ -1,0 +1,673 @@
+"""Device ingest plane — writable device-resident LSM tablets for all three
+of the paper's tables (§IV-A); the port of the reference's
+core/dist_ingest.py with one tablet group.
+
+All T tablets sit on one device as the leading dimension of every state
+tensor (the reference's shard_map over the mesh and vmap over tablets).
+The LSM lifecycle runs as PyTorch steps over that state:
+
+    append   DistBatchWriter shards encoded events by row hash; each
+             tablet's rows land in its memtable slab, and the index and
+             aggregate entries are synthesised from them on the device
+    minor    per-tablet memtable sort into the next sorted-run slot
+    major    K-way merge of the runs, then a 2-way merge with the base,
+             both through the merge_runs rank kernel — blocking the writer
+             that tripped it (the paper's backpressure)
+    fold     one increment of major compaction: the top run slot folds
+             into the base (compact_step)
+    seal     publish(): a fill-bounded sorted copy of the event memtables
+
+Each tablet owns three table families, kept in lockstep:
+
+    ev   event table      key = rev_ts (int32), payload = field codes
+    ix   index table      key = field|value|rev_ts packed int64, no payload;
+                          duplicate keys collapse at major compaction
+    ag   aggregate table  key = field|value|bucket packed int64, payload =
+                          int64 count; duplicate keys sum at major compaction
+
+Host-side mirrors of the memtable fills and run-slot counts are exact,
+so flush triggers and append destinations need no device read. Appends
+write the live memtable slabs in place (a published snapshot holds a
+sealed copy of them, never the slabs); minor, major, fold and seal write
+new tensors, so the base and run slabs a snapshot aliases never change.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import keypack
+from .device import resolve_device
+from .dist_query import DistStore
+from .ingest import BatchWriter
+from .store import DEFAULT_AGG_BUCKET_SECONDS
+from ..kernels.common import pow2
+from ..kernels.merge_runs import merge_pair_device, merge_sorted_device
+from ..obs import MetricsRegistry, OwnedLock, span
+
+REV_PAD = int(np.iinfo(np.int32).max)  # +inf rev_ts sentinel
+KEY_PAD64 = int(np.iinfo(np.int64).max)  # +inf packed-key sentinel (ix/ag)
+
+_plane_seq = itertools.count()  # names each plane's private metrics registry
+
+
+@dataclass(frozen=True)
+class _Family:
+    """One table family's static shape parameters."""
+
+    name: str
+    key_dtype: torch.dtype
+    sentinel: int
+    width: int
+    col_dtype: torch.dtype
+    mem_rows: int
+    capacity: int
+    combine: str = "none"  # major-scope fold: "none" | "sum" | "dedup"
+
+
+def _gather_rows(cols: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """cols (T, N, W) reordered along N by order (T, N')."""
+    t, n = order.shape
+    w = cols.shape[-1]
+    if w == 0:
+        return cols.new_empty((t, n, 0))
+    return cols.gather(1, order[..., None].expand(t, n, w))
+
+
+def _combine_dup_keys(keys: torch.Tensor, vals: Optional[torch.Tensor], sentinel: int):
+    """Per tablet, sum the payloads of equal adjacent keys of a sorted
+    (sentinel-tailed) (T, N) sequence and compact the unique keys to the
+    front. Returns (ukeys, int64 sums or None when vals is None, int32
+    n_unique (T,))."""
+    is_head = torch.ones_like(keys, dtype=torch.bool)
+    is_head[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    seg = torch.cumsum(is_head, dim=1) - 1
+    n_unique = (is_head & (keys != sentinel)).sum(dim=1, dtype=torch.int32)
+    # Every member of a segment carries the same key, so the duplicate
+    # writes of this scatter all write one value.
+    ukeys = torch.full_like(keys, sentinel).scatter_(1, seg, keys)
+    sums = None
+    if vals is not None:
+        sums = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
+        sums.scatter_add_(1, seg, vals.to(torch.int64))
+    return ukeys, sums, n_unique
+
+
+def _sort_masked(keys: torch.Tensor, cols: torch.Tensor, n: torch.Tensor, sentinel: int):
+    """Mask entries past each tablet's fill n (T,) to the sentinel and sort
+    (stable; the payload travels with its key). Shared by minor compaction
+    and the publish seal."""
+    valid = torch.arange(keys.shape[1], device=keys.device) < n[:, None]
+    masked = torch.where(valid, keys, sentinel)
+    skeys, order = torch.sort(masked, dim=1, stable=True)
+    return skeys, _gather_rows(cols, order)
+
+
+def _rank_within(tab: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """For each row, how many earlier rows of the chunk share its tablet."""
+    order = np.argsort(tab, kind="stable")
+    first = np.cumsum(counts) - counts
+    j = np.empty(len(tab), np.int64)
+    j[order] = np.arange(len(tab)) - first[tab[order]]
+    return j
+
+
+class _PlanePrograms:
+    """The plane's static configuration and its five device steps (append,
+    minor, major, fold_one, seal), each over a state dict of (T, ...)
+    tensors."""
+
+    def __init__(self, n_fields: int, capacity: int, n_tablets: int, mem_rows: int,
+                 max_runs: int, append_rows: int, indexed_fids: Tuple[int, ...],
+                 agg_bucket_s: int, device: torch.device):
+        self.n_fields = int(n_fields)
+        self.n_tablets = int(n_tablets)
+        self.capacity = int(capacity)
+        self.mem_rows = int(mem_rows)
+        self.max_runs = int(max_runs)
+        self.append_rows = int(min(append_rows, mem_rows))
+        self.indexed_fids = tuple(int(f) for f in indexed_fids)
+        self.agg_bucket_s = int(agg_bucket_s)
+        self.device = device
+        n_idx = len(self.indexed_fids)
+        fams = [_Family("ev", torch.int32, REV_PAD, self.n_fields, torch.int32,
+                        self.mem_rows, self.capacity)]
+        if n_idx:
+            fams.append(_Family("ix", torch.int64, KEY_PAD64, 0, torch.int32,
+                                n_idx * self.mem_rows, n_idx * self.capacity, "dedup"))
+            fams.append(_Family("ag", torch.int64, KEY_PAD64, 1, torch.int64,
+                                n_idx * self.mem_rows, n_idx * self.capacity, "sum"))
+        self.families: Tuple[_Family, ...] = tuple(fams)
+        # Indexed field ids and their entry offsets, kept on the device so
+        # an append copies nothing but its chunk to the card.
+        self._fids = torch.tensor(self.indexed_fids, dtype=torch.int64, device=device)
+        self._fid_step = torch.arange(n_idx, dtype=torch.int64, device=device)[:, None]
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        t, k, dev = self.n_tablets, self.max_runs, self.device
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        st = {"n_runs": z((t,), torch.int32), "rows": z((t,), torch.int64),
+              "minor": z((t,), torch.int32), "major": z((t,), torch.int32)}
+        for f in self.families:
+            p, m, c = f.name, f.mem_rows, f.capacity
+            st[f"{p}_mem_k"] = z((t, m), f.key_dtype)
+            st[f"{p}_mem_c"] = z((t, m, f.width), f.col_dtype)
+            st[f"{p}_mem_n"] = z((t,), torch.int32)
+            st[f"{p}_run_k"] = torch.full((t, k, m), f.sentinel, dtype=f.key_dtype, device=dev)
+            st[f"{p}_run_c"] = z((t, k, m, f.width), f.col_dtype)
+            st[f"{p}_run_n"] = z((t, k), torch.int32)
+            st[f"{p}_base_k"] = torch.full((t, c), f.sentinel, dtype=f.key_dtype, device=dev)
+            st[f"{p}_base_c"] = z((t, c, f.width), f.col_dtype)
+            st[f"{p}_base_n"] = z((t,), torch.int32)
+            st[f"{p}_overflow"] = z((t,), torch.int32)
+        return st
+
+    def seal_bucket(self, fill_max: int) -> int:
+        """Event-family slots the seal sorts to cover a memtable fill of
+        fill_max: the fill rounded up to a power of two (at least 8), at
+        most mem_rows."""
+        return int(min(max(pow2(max(fill_max, 1)), 8), self.mem_rows))
+
+    # ------------------------------------------------------------- steps
+    def append(self, st: Dict[str, torch.Tensor], rows: torch.Tensor,
+               plan: torch.Tensor) -> None:
+        """Write one chunk into the memtables, in place. rows (n, 1+F)
+        int32: rev_ts then the field codes; plan (4, n) int64: tablet id,
+        flat event-slab slot, flat index/aggregate slot of the first
+        indexed field, and the stride between indexed fields (the
+        tablet's row count in this chunk). Index and aggregate keys are
+        synthesised here from the event rows."""
+        tab, ev_slot, ix_slot0, ix_stride = plan.unbind(0)
+        rts, cols = rows[:, 0], rows[:, 1:]
+        n = rts.shape[0]
+        st["ev_mem_k"].view(-1)[ev_slot] = rts
+        st["ev_mem_c"].view(-1, self.n_fields)[ev_slot] = cols
+        ones = torch.ones(n, dtype=torch.int32, device=rts.device)
+        st["ev_mem_n"].index_add_(0, tab, ones)
+        st["rows"].index_add_(0, tab, ones.to(torch.int64))
+        n_idx = len(self.indexed_fids)
+        if not n_idx:
+            return
+        rts64 = rts.to(torch.int64)
+        bucket = (keypack.TS_MAX - rts64) // self.agg_bucket_s
+        fid = self._fids[:, None]
+        code = cols.index_select(1, self._fids).T.to(torch.int64)  # (n_idx, n)
+        ikeys = (fid << keypack.IX_FIELD_SHIFT) | (code << keypack.IX_VALUE_SHIFT) | rts64
+        akeys = (fid << keypack.AG_FIELD_SHIFT) | (code << keypack.AG_VALUE_SHIFT) | bucket
+        slots = (ix_slot0[None, :] + self._fid_step * ix_stride[None, :]).reshape(-1)
+        st["ix_mem_k"].view(-1)[slots] = ikeys.reshape(-1)
+        st["ag_mem_k"].view(-1)[slots] = akeys.reshape(-1)
+        st["ag_mem_c"].view(-1)[slots] = 1
+        st["ix_mem_n"].index_add_(0, tab, ones * n_idx)
+        st["ag_mem_n"].index_add_(0, tab, ones * n_idx)
+
+    def minor(self, st: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Flush every tablet's memtable that holds rows into its next free
+        run slot (all families in lockstep). Returns the updated tensors."""
+        k = self.max_runs
+        nr = st["n_runs"]
+        do = (st["ev_mem_n"] > 0) & (nr < k)
+        slot = nr.clamp(0, k - 1).long()
+        sel = do[:, None] & (torch.arange(k, device=nr.device)[None, :] == slot[:, None])
+        out = {}
+        for f in self.families:
+            p = f.name
+            n = st[f"{p}_mem_n"]
+            skeys, scols = _sort_masked(st[f"{p}_mem_k"], st[f"{p}_mem_c"], n, f.sentinel)
+            out[f"{p}_run_k"] = torch.where(sel[..., None], skeys[:, None], st[f"{p}_run_k"])
+            out[f"{p}_run_c"] = torch.where(sel[..., None, None], scols[:, None], st[f"{p}_run_c"])
+            out[f"{p}_run_n"] = torch.where(sel, n[:, None], st[f"{p}_run_n"])
+            out[f"{p}_mem_n"] = torch.where(do, 0, n)
+        out["n_runs"] = nr + do.to(nr.dtype)
+        out["minor"] = st["minor"] + do.to(torch.int32)
+        return out
+
+    def _fold_into_base(self, st, f: _Family, fk, fc, rows_in, do, out) -> None:
+        """Combine a merged (base + runs) sequence per the family's rule
+        and write base and overflow for the tablets where ``do``."""
+        p, c = f.name, f.capacity
+        if f.combine == "sum":
+            fk, sums, total = _combine_dup_keys(fk, fc[..., 0], f.sentinel)
+            fc = sums[..., None].to(fc.dtype)
+        elif f.combine == "dedup":
+            fk, _, total = _combine_dup_keys(fk, None, f.sentinel)
+        else:
+            total = st[f"{p}_base_n"] + rows_in
+        kept = total.clamp(max=c)
+        out[f"{p}_base_k"] = torch.where(do[:, None], fk[:, :c], st[f"{p}_base_k"])
+        out[f"{p}_base_c"] = torch.where(do[:, None, None], fc[:, :c], st[f"{p}_base_c"])
+        out[f"{p}_base_n"] = torch.where(do, kept, st[f"{p}_base_n"])
+        out[f"{p}_overflow"] = st[f"{p}_overflow"] + torch.where(do, total - kept, 0)
+
+    def major(self, st: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Fold every run into the base: a K-way merge of the runs, then a
+        2-way merge with the base, both through the merge_runs kernel."""
+        nr = st["n_runs"]
+        do = nr > 0
+        out = {}
+        for f in self.families:
+            p, m = f.name, f.mem_rows
+            rn = st[f"{p}_run_n"]
+            within = torch.arange(m, device=rn.device)[None, None, :] < rn[..., None]
+            ck = torch.where(within, st[f"{p}_run_k"], f.sentinel)
+            cc = torch.where(within[..., None], st[f"{p}_run_c"], 0)
+            mk, mc = merge_sorted_device(ck, cc, rn)
+            rows_in = rn.sum(dim=1, dtype=torch.int32)
+            fk, fc = merge_pair_device(st[f"{p}_base_k"], st[f"{p}_base_c"], st[f"{p}_base_n"],
+                                       mk, mc, rows_in)
+            self._fold_into_base(st, f, fk, fc, rows_in, do, out)
+            out[f"{p}_run_n"] = torch.where(do[:, None], 0, rn)
+        out["n_runs"] = torch.where(do, 0, nr)
+        out["major"] = st["major"] + do.to(torch.int32)
+        return out
+
+    def fold_one(self, st: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One increment of major compaction: every tablet folds its top run
+        slot (n_runs - 1) into its base by one 2-way merge per family, so
+        the remaining slots stay a contiguous prefix."""
+        nr = st["n_runs"]
+        do = nr > 0
+        slot = (nr - 1).clamp(min=0).long()
+        tix = torch.arange(nr.shape[0], device=nr.device)
+        out = {}
+        for f in self.families:
+            p, m = f.name, f.mem_rows
+            rn = st[f"{p}_run_n"]
+            rn_slot = rn[tix, slot]
+            within = torch.arange(m, device=rn.device)[None, :] < rn_slot[:, None]
+            ck = torch.where(within, st[f"{p}_run_k"][tix, slot], f.sentinel)
+            cc = torch.where(within[..., None], st[f"{p}_run_c"][tix, slot], 0)
+            fk, fc = merge_pair_device(st[f"{p}_base_k"], st[f"{p}_base_c"], st[f"{p}_base_n"],
+                                       ck, cc, rn_slot)
+            self._fold_into_base(st, f, fk, fc, rn_slot, do, out)
+            new_rn = rn.clone()
+            new_rn[tix, slot] = torch.where(do, 0, rn_slot)
+            out[f"{p}_run_n"] = new_rn
+        out["n_runs"] = nr - do.to(nr.dtype)
+        # The increment that folds a tablet's last run completes one major.
+        out["major"] = st["major"] + (do & (nr == 1)).to(torch.int32)
+        return out
+
+    def seal(self, st: Dict[str, torch.Tensor], seal_rows: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Sorted copy of the event memtables' live heads, the level the
+        scan path reads: only the first seal_rows slots are sorted; the
+        output keeps the full (T, mem_rows) shape with a sentinel tail.
+        Returns (keys, cols, live counts)."""
+        m, h = self.mem_rows, seal_rows
+        n = st["ev_mem_n"]
+        hk, hc = _sort_masked(st["ev_mem_k"][:, :h], st["ev_mem_c"][:, :h], n, REV_PAD)
+        t = hk.shape[0]
+        keys = torch.cat([hk, hk.new_full((t, m - h), REV_PAD)], dim=1)
+        cols = torch.cat([hc, hc.new_zeros((t, m - h, self.n_fields))], dim=1)
+        return keys, cols, n.clone()
+
+
+class TabletGroup:
+    """The plane's tablets with their lock, device state, exact host
+    mirrors (memtable fill, run-slot count), generation tags and published
+    snapshot. Everything here is guarded by ``self.lock``. (The reference
+    shards a plane into several groups; the port has one.)"""
+
+    def __init__(self, programs: _PlanePrograms, m_seal, m_blocked, m_folds):
+        self.programs = programs
+        self.n_tablets = programs.n_tablets
+        self._m_seal = m_seal
+        self._m_blocked = m_blocked
+        self._m_folds = m_folds
+        self.lock = OwnedLock("plane_lock")
+        self._fill = np.zeros(self.n_tablets, np.int64)  # guarded-by: lock
+        self._runs_host = np.zeros(self.n_tablets, np.int32)  # guarded-by: lock
+        self._dirty = True  # guarded-by: lock
+        self._published: Optional[DistStore] = None  # guarded-by: lock
+        # Generation per LSM level: appends bump "mem"; a minor bumps "mem"
+        # and "runs"; a fold into the base bumps "runs" and "base". The
+        # sealed memtable is reused while "mem" is unchanged.
+        self._gen: Dict[str, int] = {"mem": 0, "runs": 0, "base": 0}  # guarded-by: lock
+        self._sealed_cache: Optional[Tuple[int, Tuple[torch.Tensor, ...], int]] = None  # guarded-by: lock
+        self.state: Dict[str, torch.Tensor] = programs.init_state()  # guarded-by: lock
+
+    def load_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Replace the device state (same keys and shapes) and derive the
+        host mirrors from it."""
+        with self.lock.hold("bookkeeping"):
+            if state.keys() != self.state.keys():
+                raise ValueError("state keys differ from the plane's")
+            for name, t in state.items():
+                ref = self.state[name]
+                if t.shape != ref.shape or t.dtype != ref.dtype or t.device != ref.device:
+                    raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} {t.device} does "
+                                     f"not match {tuple(ref.shape)} {ref.dtype} {ref.device}")
+            self.state = dict(state)
+            self._fill = state["ev_mem_n"].cpu().numpy().astype(np.int64)
+            self._runs_host = state["n_runs"].cpu().numpy().astype(np.int32)
+            self._gen = {k: v + 1 for k, v in self._gen.items()}
+            self._sealed_cache = None
+            self._dirty = True
+
+    # --------------------------------------------------------- compaction
+    def _run_minor(self) -> None:  # holds: lock
+        pr = self.programs
+        self.state.update(pr.minor(self.state))
+        # Mirror the device guard: a tablet flushes iff it holds rows and
+        # has a free run slot.
+        flushed = (self._fill > 0) & (self._runs_host < pr.max_runs)
+        self._runs_host += flushed
+        self._fill = np.where(flushed, 0, self._fill)
+        if flushed.any():
+            self._gen["mem"] += 1
+            self._gen["runs"] += 1
+
+    def _run_major(self) -> None:  # holds: lock
+        self.state.update(self.programs.major(self.state))
+        if self._runs_host.max() > 0:
+            self._gen["runs"] += 1
+            self._gen["base"] += 1
+        self._runs_host[:] = 0
+
+    def _run_fold_one(self) -> None:  # holds: lock
+        self.state.update(self.programs.fold_one(self.state))
+        if self._runs_host.max() > 0:
+            self._gen["runs"] += 1
+            self._gen["base"] += 1
+        self._runs_host = np.maximum(self._runs_host - 1, 0).astype(np.int32)
+
+    # ------------------------------------------------------------- ingest
+    def ingest(self, rts: np.ndarray, cols: np.ndarray, tab: np.ndarray,
+               writer_id: int = 0) -> float:
+        """Append a pre-encoded batch (tab = tablet ids). Returns seconds
+        this writer spent blocked on major compactions it tripped."""
+        n = len(rts)
+        if n == 0:
+            return 0.0
+        with self.lock.hold("ingest_append"):
+            with span("ingest.append", cat="ingest", rows=n, writer=writer_id) as sp:
+                blocked = self._ingest_locked(rts, cols, tab, n)
+                sp.set(blocked_s=blocked)
+            self._m_blocked.inc(blocked, writer=writer_id)
+            return blocked
+
+    def _ingest_locked(self, rts, cols, tab, n: int) -> float:  # holds: lock
+        pr = self.programs
+        t, m = self.n_tablets, pr.mem_rows
+        n_idx = len(pr.indexed_fids)
+        # One host-to-device copy of the batch: rev_ts beside the codes.
+        packed = np.empty((n, 1 + pr.n_fields), np.int32)
+        packed[:, 0] = rts
+        packed[:, 1:] = cols
+        rows_dev = torch.from_numpy(packed).to(pr.device)
+        blocked = 0.0
+        for off in range(0, n, pr.append_rows):
+            tab_c = tab[off: off + pr.append_rows].astype(np.int64)
+            cb = np.bincount(tab_c, minlength=t)
+            # Exact room check from the host fill mirror: flush only when
+            # some tablet's memtable would overflow.
+            if np.any(self._fill + cb > m):
+                if np.any((self._fill > 0) & (self._runs_host >= pr.max_runs)):
+                    # No free run slot for a tablet that must flush: a major
+                    # first, blocking this writer (backpressure).
+                    t0 = time.perf_counter()
+                    with self.lock.reowner("fold_increment"):
+                        with span("ingest.major", cat="ingest") as sp:
+                            self._run_major()
+                            sp.fence(self.state["ev_base_n"])
+                        if pr.device.type == "cuda":
+                            torch.cuda.synchronize(pr.device)  # the writer waits for the fold
+                    blocked += time.perf_counter() - t0
+                    self._m_folds.inc(source="ingest")
+                with span("ingest.minor", cat="ingest"):
+                    self._run_minor()
+            if np.any(self._fill + cb > m):  # the flush above always makes room
+                raise RuntimeError("memtable has no room after a flush")
+            # Destinations from the exact host fill mirror: a tablet's rows
+            # land after its fill, in chunk order; entry i of a row's
+            # indexed fields lands i * (tablet's chunk rows) further on.
+            j = _rank_within(tab_c, cb)
+            fill = self._fill[tab_c]
+            plan = np.stack([tab_c, tab_c * m + fill + j,
+                             tab_c * (n_idx * m) + n_idx * fill + j, cb[tab_c]])
+            pr.append(self.state, rows_dev[off: off + len(tab_c)],
+                      torch.from_numpy(plan).to(pr.device))
+            self._fill += cb
+        self._dirty = True
+        self._gen["mem"] += 1
+        return blocked
+
+    # -------------------------------------------------------------- reads
+    def snapshot(self) -> DistStore:
+        """A query-visible DistStore of every level of the event family:
+        the base and run slabs by reference, and a sealed (sorted) copy of
+        the memtables — O(live fill) device work, no fold. Reused as is when
+        nothing changed since the last snapshot."""
+        with self.lock.hold("publish_seal"):
+            if not self._dirty and self._published is not None:
+                return self._published
+            pr = self.programs
+            gen_mem = self._gen["mem"]
+            if self._sealed_cache is not None and self._sealed_cache[0] == gen_mem:
+                _, sealed, seal_rows = self._sealed_cache
+                self._m_seal.inc(event="reuse")
+            else:
+                seal_rows = pr.seal_bucket(int(self._fill.max()))
+                with span("ingest.seal", cat="ingest", seal_rows=seal_rows):
+                    sealed = pr.seal(self.state, seal_rows)
+                self._sealed_cache = (gen_mem, sealed, seal_rows)
+                self._m_seal.inc(event="seal")
+            s = self.state
+            mem_k, mem_c, mem_n = sealed
+            self._published = DistStore(
+                rev_ts=s["ev_base_k"], cols=s["ev_base_c"], counts=s["ev_base_n"],
+                run_rev_ts=s["ev_run_k"], run_cols=s["ev_run_c"], run_counts=s["ev_run_n"],
+                mem_rev_ts=mem_k, mem_cols=mem_c, mem_counts=mem_n,
+            )
+            self._dirty = False
+            return self._published
+
+    def has_unfolded(self) -> bool:
+        """True when memtables or run slots hold rows (host mirrors)."""
+        with self.lock.hold("bookkeeping"):
+            return bool(self._fill.max() or self._runs_host.max())
+
+    # --------------------------------------------------------------- fold
+    def compact(self, source: str = "explicit") -> int:
+        """Drain memtables into runs and runs into the base. Returns the
+        minor+major passes run (0 when there was nothing to fold)."""
+        with self.lock.hold("fold_increment"):
+            if self._fill.max() == 0 and self._runs_host.max() == 0:
+                return 0
+            passes = 0
+            with span("ingest.compact", cat="ingest", source=source):
+                while True:
+                    self._run_minor()
+                    self._run_major()
+                    passes += 1
+                    if self._fill.max() == 0:
+                        break
+            self._m_folds.inc(passes, source=source)
+            self._dirty = True
+            return passes
+
+    def compact_step(self, source: str = "explicit") -> int:
+        """One bounded increment: fold the top run slot of every tablet
+        into its base, or else flush the memtables into a run. Returns 1
+        when an increment ran, else 0."""
+        with self.lock.hold("fold_increment"):
+            if self._runs_host.max() > 0:
+                with span("ingest.fold_increment", cat="ingest", source=source, kind="fold"):
+                    self._run_fold_one()
+            elif self._fill.max() > 0:
+                with span("ingest.fold_increment", cat="ingest", source=source, kind="minor"):
+                    self._run_minor()
+            else:
+                return 0
+            self._m_folds.inc(source=source)
+            self._dirty = True
+            return 1
+
+    def telemetry_arrays(self) -> Dict[str, np.ndarray]:
+        """Per-tablet device counters, copied to the host."""
+        with self.lock.hold("bookkeeping"):
+            names = {"rows": "rows", "minor": "minor", "major": "major",
+                     "n_runs": "n_runs", "overflow": "ev_overflow",
+                     "mem_n": "ev_mem_n", "base_n": "ev_base_n"}
+            for f in self.programs.families[1:]:
+                names[f"{f.name}_overflow"] = f"{f.name}_overflow"
+                names[f"{f.name}_base_n"] = f"{f.name}_base_n"
+            return {k: self.state[v].cpu().numpy() for k, v in names.items()}
+
+
+class DistIngestPlane:
+    """Device-resident LSM tablet grid: n_tablets tablets on one device,
+    each with a memtable slab (mem_rows), max_runs sorted-run slots and a
+    base run (capacity rows), per family. The state lives in one
+    :class:`TabletGroup`; plane sharding (n_groups > 1) comes with a later
+    slice of the port.
+
+    ``device`` defaults to "cuda" and raises when CUDA is missing; the
+    CPU tests pass device="cpu", which runs the kernels' plain versions."""
+
+    def __init__(self, n_fields: int, capacity: int, n_tablets: int = 1,
+                 mem_rows: int = 4096, max_runs: int = 4, append_rows: int = 1024,
+                 indexed_fids: Sequence[int] = (),
+                 agg_bucket_s: int = DEFAULT_AGG_BUCKET_SECONDS, n_groups: int = 1,
+                 device="cuda"):
+        if n_groups != 1:
+            raise NotImplementedError(
+                "plane sharding (n_groups > 1) comes with a later slice of the port"
+            )
+        self.device = resolve_device(device)
+        self.n_tablets = int(n_tablets)
+        self.metrics = MetricsRegistry(f"plane{next(_plane_seq)}")
+        self._m_seal = self.metrics.counter(
+            "plane_seal_total", "publishes that ran (event=seal) vs reused (event=reuse)")
+        self._m_blocked = self.metrics.counter(
+            "plane_blocked_seconds_total", "writer seconds blocked on tripped majors")
+        self._m_folds = self.metrics.counter(
+            "plane_fold_events_total", "run->base folds by driving source")
+        self.programs = _PlanePrograms(
+            n_fields, capacity, n_tablets, mem_rows, max_runs, append_rows,
+            tuple(indexed_fids), agg_bucket_s, self.device,
+        )
+        self.families = self.programs.families
+        self.group = TabletGroup(self.programs, self._m_seal, self._m_blocked, self._m_folds)
+
+    @classmethod
+    def for_store(cls, store, capacity: int, **kw) -> "DistIngestPlane":
+        """Plane bound to a host store's schema: index postings and
+        aggregate counts for its indexed fields, at its bucketing."""
+        kw.setdefault("indexed_fids", tuple(int(f) for f in store._indexed_field_ids))
+        kw.setdefault("agg_bucket_s", store.agg_bucket_seconds)
+        return cls(store.schema.n_fields, capacity, **kw)
+
+    # ------------------------------------------------------ metric views
+    @property
+    def seal_events(self) -> int:
+        return int(self._m_seal.value(event="seal"))
+
+    @property
+    def seal_reuses(self) -> int:
+        return int(self._m_seal.value(event="reuse"))
+
+    @property
+    def blocked_seconds(self) -> float:
+        return self._m_blocked.total()
+
+    @property
+    def fold_events(self) -> Dict[str, int]:
+        return {dict(key)["source"]: int(v) for key, v in self._m_folds.cells().items()}
+
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The device state dict."""
+        return self.group.state
+
+    def load_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Start from a given LSM state (see core/carry.py)."""
+        self.group.load_state(state)
+
+    def state_bytes(self) -> int:
+        """Device bytes held by the plane's state."""
+        return sum(t.numel() * t.element_size() for t in self.state.values())
+
+    # ----------------------------------------------------------- ingest
+    def ingest(self, rts: np.ndarray, cols: np.ndarray, tab: np.ndarray,
+               writer_id: int = 0) -> float:
+        """Append a pre-encoded, pre-sharded batch: rts int32 reversed
+        timestamps, cols (n, F) int32 codes, tab (n,) tablet ids. Returns
+        seconds this writer spent blocked on majors it tripped."""
+        rts = np.asarray(rts, np.int32)
+        cols = np.asarray(cols, np.int32)
+        tab = np.asarray(tab, np.int64)
+        if len(tab) and (tab.min() < 0 or tab.max() >= self.n_tablets):
+            raise ValueError(f"tablet ids must lie in [0, {self.n_tablets})")
+        return self.group.ingest(rts, cols, tab, writer_id=writer_id)
+
+    # ------------------------------------------------------------ reads
+    def publish(self) -> DistStore:
+        """Snapshot the plane into a query-visible DistStore (all levels,
+        no fold)."""
+        with span("ingest.publish", cat="ingest"):
+            return self.group.snapshot()
+
+    def has_unfolded(self) -> bool:
+        return self.group.has_unfolded()
+
+    def compact(self, source: str = "explicit") -> int:
+        """Fold memtables and runs into the base (see TabletGroup.compact)."""
+        return self.group.compact(source)
+
+    def compact_step(self, source: str = "explicit") -> int:
+        """One bounded increment of compaction (see TabletGroup.compact_step)."""
+        return self.group.compact_step(source)
+
+    def telemetry(self) -> Dict[str, object]:
+        """Per-tablet device counters plus the plane's metric views."""
+        out: Dict[str, object] = dict(self.group.telemetry_arrays())
+        out["blocked_seconds"] = float(self.blocked_seconds)
+        out["fold_events"] = self.fold_events
+        with self.group.lock.hold("bookkeeping"):
+            out["level_gen"] = dict(self.group._gen)
+        out["seal_events"] = self.seal_events
+        out["seal_reuses"] = self.seal_reuses
+        return out
+
+
+class DistBatchWriter(BatchWriter):
+    """Client-side ingest writer for the device plane: a flush encodes
+    through the store's dictionaries, shards by row hash and appends
+    through the plane. writer_id salts the row hash and keys the plane's
+    per-writer blocked seconds; omitted, each writer gets a fresh id."""
+
+    _next_id = itertools.count()
+
+    def __init__(self, store, plane: DistIngestPlane, batch_rows: int = 4096,
+                 writer_id: Optional[int] = None):
+        super().__init__(store, batch_rows=batch_rows)
+        self.plane = plane
+        if writer_id is None:
+            writer_id = next(DistBatchWriter._next_id)
+        self._writer_id = np.int64(writer_id)
+        self._count = 0
+
+    def _write(self, ts: np.ndarray, values) -> float:
+        ts = np.asarray(ts, dtype=np.int64)
+        if np.any(ts < 0) or np.any(ts > keypack.TS_MAX):
+            raise ValueError("timestamp out of 30-bit store range")
+        cols = self.store.encode_events(ts, values)
+        n = len(ts)
+        nonce = np.arange(self._count, self._count + n, dtype=np.int64)
+        self._count += n
+        h = keypack.short_hash(
+            *(cols[:, j] for j in range(cols.shape[1])), ts, nonce, self._writer_id
+        )
+        tab = (h % self.plane.n_tablets).astype(np.int32)
+        rts = keypack.rev_ts(ts).astype(np.int32)
+        return self.plane.ingest(rts, cols, tab, writer_id=int(self._writer_id))

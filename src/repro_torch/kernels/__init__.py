@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+  merge_runs    output ranks of K sorted runs (major compaction's merge)
+  filter_scan   the postfix predicate program over dictionary codes
+
+Each subpackage has ``ref.py`` (the plain version; filter_scan's runs the
+program evaluator of ``program_eval.py``) and ``ops.py`` (the wrapper:
+plain version for CPU tensors, the CUDA kernel for CUDA tensors, with a
+launch counter). The CUDA sources live in ``csrc/`` and are built
+by ``build.py`` at first use.
+"""

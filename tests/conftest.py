@@ -19,3 +19,9 @@ except ImportError:
     _stub = importlib.util.module_from_spec(_spec)
     _spec.loader.exec_module(_stub)
     _stub.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA); skipped where CUDA is missing"
+    )

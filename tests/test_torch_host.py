@@ -1,0 +1,217 @@
+"""The port's host-side modules against the JAX package's: packed keys,
+dictionaries, compiled filter programs, the Alg-1 batcher, the planner's
+filter branch, the host EventStore's tablets, the synthetic source, and
+the rule that the port imports neither jax nor the reference."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+from repro.core import keypack as jk
+from repro.core import EventStore as JaxEventStore, web_proxy_schema as jax_schema
+from repro.core import And as JAnd, Eq as JEq, In as JIn, Not as JNot, Or as JOr
+from repro.core.batching import AdaptiveBatcher as JaxBatcher, alg1_next_k as jax_alg1
+from repro.core.filter import compile_tree as jax_compile_tree
+from repro.core.ingest import BatchWriter as JaxBatchWriter
+from repro.core.planner import plan_query as jax_plan_query
+from repro.pipeline.sources import (
+    SyntheticWebProxySource as JaxSource,
+    parse_web_proxy_lines as jax_parse,
+)
+
+from repro_torch.core import keypack as pk
+from repro_torch.core import filter as pf
+from repro_torch.core.batching import AdaptiveBatcher, alg1_next_k
+from repro_torch.core.ingest import BatchWriter
+from repro_torch.core.planner import plan_query
+from repro_torch.core.scan import scan_events
+from repro_torch.core.schema import web_proxy_schema
+from repro_torch.core.store import EventStore
+from repro_torch.pipeline.sources import SyntheticWebProxySource, parse_web_proxy_lines
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_packed_keys_match_reference():
+    rng = np.random.default_rng(0)
+    shard = rng.integers(0, jk.MAX_SHARDS, 200)
+    ts = rng.integers(0, jk.TS_MAX, 200)
+    h = rng.integers(0, jk.HASH_MAX, 200)
+    field = rng.integers(0, 12, 200)
+    value = rng.integers(0, jk.MAX_VALUES, 200)
+    np.testing.assert_array_equal(pk.rev_ts(ts), jk.rev_ts(ts))
+    np.testing.assert_array_equal(pk.unrev_ts(ts), jk.unrev_ts(ts))
+    np.testing.assert_array_equal(pk.pack_event_key(shard, ts, h), jk.pack_event_key(shard, ts, h))
+    np.testing.assert_array_equal(pk.pack_index_key(field, value, ts),
+                                  jk.pack_index_key(field, value, ts))
+    np.testing.assert_array_equal(pk.pack_agg_key(field, value, ts // 3600),
+                                  jk.pack_agg_key(field, value, ts // 3600))
+    np.testing.assert_array_equal(pk.short_hash(shard, ts, h), jk.short_hash(shard, ts, h))
+    assert pk.event_key_range(3, 100, 900) == jk.event_key_range(3, 100, 900)
+    # The device append synthesises keys with these shifts.
+    assert pk.IX_FIELD_SHIFT == jk._IX_FIELD_SHIFT and pk.AG_FIELD_SHIFT == jk._AG_FIELD_SHIFT
+
+
+def test_dictionaries_and_encoding_match_reference():
+    rng = np.random.default_rng(1)
+    vals = {"domain": rng.choice(["x.com", "y.com", "z.org"], 300).tolist(),
+            "status": rng.choice(["200", "404"], 300).tolist()}
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    np.testing.assert_array_equal(ps.encode_events(np.zeros(300), vals),
+                                  js.encode_events(np.zeros(300), vals))
+    for name in ("domain", "status", "method"):
+        for value in ("x.com", "y.com", "z.org", "200", "404", "", "never-seen"):
+            assert ps.dictionaries[name].lookup(value) == js.dictionaries[name].lookup(value)
+    assert ps.schema.field_names() == js.schema.field_names()
+
+
+def trees(lib):
+    eq, in_, not_, and_, or_ = lib
+    return [
+        None,
+        eq("domain", "x.com"),
+        eq("domain", "never-seen"),
+        in_("status", ("200", "nope")),
+        not_(eq("method", "GET")),
+        and_(eq("domain", "x.com"), or_(eq("status", "404"), not_(in_("method", ("PUT",))))),
+        or_(*(eq("domain", d) for d in ("x.com", "y.com", "z.org"))),
+    ]
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_compiled_programs_match_reference(i):
+    vals = {"domain": ["x.com", "y.com", "z.org"], "status": ["200", "404", "200"],
+            "method": ["GET", "PUT", "POST"]}
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    js.encode_events(np.zeros(3), vals)
+    ps.encode_events(np.zeros(3), vals)
+    jp = jax_compile_tree(js, trees((JEq, JIn, JNot, JAnd, JOr))[i])
+    pp = pf.compile_tree(ps, trees((pf.Eq, pf.In, pf.Not, pf.And, pf.Or))[i])
+    for name in ("opcodes", "arg0", "arg1", "codesets"):
+        got, want = getattr(pp, name), getattr(jp, name)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert pp.max_depth == jp.max_depth
+
+
+def test_too_deep_tree_is_rejected_like_the_reference():
+    ps, js = EventStore(web_proxy_schema()), JaxEventStore(jax_schema())
+    tree, jtree = pf.Eq("domain", "x"), JEq("domain", "x")
+    for _ in range(8):  # each right-nested AND needs one more stack slot
+        tree, jtree = pf.And(pf.Eq("status", "y"), tree), JAnd(JEq("status", "y"), jtree)
+    with pytest.raises(ValueError, match="too deep"):
+        jax_compile_tree(js, jtree)
+    with pytest.raises(ValueError, match="too deep"):
+        pf.compile_tree(ps, tree)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_alg1_batches_match_reference(seed):
+    rng = np.random.default_rng(seed)
+    reports = [(float(rng.uniform(1e-4, 40.0)), int(rng.integers(0, 5000))) for _ in range(40)]
+    for runtime, rows in reports[:10]:
+        assert alg1_next_k(25.0, runtime, rows, 1.5, 30.0, 1.0) == jax_alg1(
+            25.0, runtime, rows, 1.5, 30.0, 1.0)
+    b0 = float(rng.uniform(1, 100))
+    jb, pb = JaxBatcher(0, 14400, b0), AdaptiveBatcher(0, 14400, b0)
+    for runtime, rows in reports:
+        if jb.done:
+            break
+        assert pb.next_range() == jb.next_range() and pb.done == jb.done
+        jb.update(runtime, rows)
+        pb.update(runtime, rows)
+    assert pb.done == jb.done
+    assert [(r.p, r.b, r.k) for r in pb.history] == [(r.p, r.b, r.k) for r in jb.history]
+    with pytest.raises(ValueError):
+        AdaptiveBatcher(10, 5, 1.0)
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_filter_plans_match_reference(i):
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    jt = trees((JEq, JIn, JNot, JAnd, JOr))[i]
+    pt = trees((pf.Eq, pf.In, pf.Not, pf.And, pf.Or))[i]
+    jp = jax_plan_query(js, jt, 0, 3600, use_index=False)
+    pp = plan_query(ps, pt, 0, 3600, use_index=False)
+    assert pp.mode == jp.mode == "filter"
+    assert type(pp.residual).__name__ == type(jp.residual).__name__
+
+
+def test_index_planning_waits_for_the_index_slice():
+    ps = EventStore(web_proxy_schema())
+    with pytest.raises(NotImplementedError, match="index"):
+        plan_query(ps, pf.Eq("domain", "x.com"), 0, 3600)
+    assert plan_query(ps, None, 0, 3600).mode == "filter"
+
+
+def test_host_store_tablets_match_reference():
+    src = JaxSource(seed=5)
+    ts, vals = jax_parse(src.gen_lines(3000, 0, 14400))
+    kw = dict(n_shards=3, flush_rows=400, max_runs=2, seed=9)
+    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw)
+    jw, pw = JaxBatchWriter(js, batch_rows=700), BatchWriter(ps, batch_rows=700)
+    for off in range(0, 3000, 450):
+        part = {k: v[off: off + 450] for k, v in vals.items()}
+        jw.add(ts[off: off + 450], part, nbytes=10)
+        pw.add(ts[off: off + 450], part, nbytes=10)
+    jw.close()
+    pw.close()
+    assert (pw.metrics.rows, pw.metrics.flushes, pw.metrics.bytes) == (
+        jw.metrics.rows, jw.metrics.flushes, jw.metrics.bytes)
+    assert ps.rows_per_second() == js.rows_per_second()
+    # The tablets' runs (minor and major compactions through
+    # merge_sorted_runs) are identical.
+    pairs = list(zip(ps.event_tablets + ps.index_tablets + [ps.agg_tablet],
+                     js.event_tablets + js.index_tablets + [js.agg_tablet]))
+    assert sum(p.major_compactions for p, _ in pairs) > 0
+    for p, j in pairs:
+        assert (p.minor_compactions, p.major_compactions) == (
+            j.minor_compactions, j.major_compactions)
+        assert len(p.runs) == len(j.runs)
+        for pr_, jr in zip(p.runs, j.runs):
+            np.testing.assert_array_equal(pr_.keys, jr.keys)
+            np.testing.assert_array_equal(pr_.cols, jr.cols)
+            assert pr_.cols.dtype == jr.cols.dtype
+    got = [(k, c) for k, c in scan_events(ps, 1000, 9000)]
+    from repro.core.scan import scan_events as jax_scan_events
+
+    want = [(b.keys, b.cols) for b in jax_scan_events(js, 1000, 9000)]
+    assert len(got) == len(want)
+    for (gk, gc), (wk, wc) in zip(got, want):
+        np.testing.assert_array_equal(gk, wk)
+        np.testing.assert_array_equal(gc, wc)
+
+
+def test_synthetic_source_matches_reference():
+    jl = JaxSource(seed=3).gen_lines(500, 0, 14400)
+    pl = SyntheticWebProxySource(seed=3).gen_lines(500, 0, 14400)
+    assert pl == jl
+    jts, jcols = jax_parse(jl)
+    pts, pcols = parse_web_proxy_lines(pl)
+    np.testing.assert_array_equal(pts, jts)
+    assert pcols == jcols
+    for q in (0.0, 0.3, 0.99):
+        assert SyntheticWebProxySource(seed=3).domain_by_popularity(q) == \
+            JaxSource(seed=3).domain_by_popularity(q)
+
+
+def port_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert files
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"

@@ -1,0 +1,210 @@
+"""The port's device ingest plane against the JAX reference plane.
+
+The same seeded events go through both packages' DistBatchWriter into
+planes of the same shape (4 tablets, small slabs, the web-proxy schema's
+12 indexed fields). After every flush, every minor and major tripped by
+ingest, every compact_step increment and every publish, every tensor of
+the port's ``plane.state`` must equal the reference's array bit for bit
+with the same dtype, and the counters must agree. The port runs on the
+CPU, so its merge and filter wrappers run their plain versions; the
+reference runs its jnp paths.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import EventStore as JaxEventStore, web_proxy_schema as jax_schema
+from repro.core.dist_ingest import (
+    DistBatchWriter as JaxWriter,
+    DistIngestPlane as JaxPlane,
+)
+from repro.launch.mesh import make_dev_mesh
+
+from repro_torch.core.carry import plane_state_from_numpy
+from repro_torch.core.dist_ingest import DistBatchWriter, DistIngestPlane
+from repro_torch.core.schema import web_proxy_schema
+from repro_torch.core.store import EventStore
+
+T_SPAN = 4 * 3600
+SIZES = dict(n_tablets=4, mem_rows=48, max_runs=2, append_rows=20)
+
+
+def gen_events(seed, n):
+    rng = np.random.default_rng(seed)
+    ts = np.sort(rng.integers(0, T_SPAN, n))
+    vals = {
+        "domain": rng.choice(["a.com", "b.com", "c.com", "rare.net"],
+                             p=[0.6, 0.25, 0.13, 0.02], size=n).tolist(),
+        "method": rng.choice(["GET", "POST"], size=n).tolist(),
+        "status": rng.choice(["200", "404"], size=n, p=[0.8, 0.2]).tolist(),
+        "src_ip": rng.choice([f"10.0.0.{i}" for i in range(30)], size=n).tolist(),
+    }
+    return ts, vals
+
+
+def numpy_state(state):
+    return {k: np.asarray(v) for k, v in state.items()}
+
+
+# The reference's event-family major computes the new base count as
+# ``bn + rn.sum()`` (src/repro/core/dist_ingest.py:512); with jax x64 on,
+# that sum is int64, so after the first major its ev_base_n and
+# ev_overflow drift from int32 to int64. The port keeps every counter at
+# the dtype it was created with; for these two arrays alone the test
+# holds the values bit for bit and the port's dtype to int32.
+DRIFTING_COUNTERS = {"ev_base_n", "ev_overflow"}
+
+
+def assert_states_equal(jax_state, port_state, where=""):
+    ref = numpy_state(jax_state)
+    assert ref.keys() == port_state.keys()
+    for name, want in ref.items():
+        got = port_state[name].numpy()
+        if name in DRIFTING_COUNTERS:
+            assert got.dtype == np.int32 and want.dtype in (np.int32, np.int64), name
+            want = want.astype(np.int32)
+        assert got.dtype == want.dtype, f"{where}{name}: {got.dtype} != {want.dtype}"
+        assert got.shape == want.shape, f"{where}{name}: {got.shape} != {want.shape}"
+        np.testing.assert_array_equal(got, want, err_msg=f"{where}{name}")
+
+
+class Twin:
+    """One reference plane and one port plane fed identical events."""
+
+    def __init__(self, capacity, seed=11):
+        self.jstore = JaxEventStore(jax_schema(), n_shards=2)
+        self.pstore = EventStore(web_proxy_schema(), n_shards=2)
+        t = SIZES["n_tablets"]
+        self.jplane = JaxPlane.for_store(
+            self.jstore, make_dev_mesh(1, 1), capacity=capacity, tablets_per_device=t,
+            mem_rows=SIZES["mem_rows"], max_runs=SIZES["max_runs"],
+            append_rows=SIZES["append_rows"],
+        )
+        self.pplane = DistIngestPlane.for_store(self.pstore, capacity=capacity, device="cpu",
+                                                **SIZES)
+        self.jw = JaxWriter(self.jstore, self.jplane, batch_rows=150, writer_id=3)
+        self.pw = DistBatchWriter(self.pstore, self.pplane, batch_rows=150, writer_id=3)
+        self.seed = seed
+
+    def check(self, where):
+        assert_states_equal(self.jplane.state, self.pplane.state, where)
+        jt, pt = self.jplane.telemetry(), self.pplane.telemetry()
+        for key in ("rows", "minor", "major", "n_runs", "overflow", "mem_n", "base_n",
+                    "ix_overflow", "ix_base_n", "ag_overflow", "ag_base_n"):
+            want = np.asarray(jt[key])
+            assert pt[key].dtype == (np.int64 if key == "rows" else np.int32), key
+            np.testing.assert_array_equal(pt[key], want, err_msg=where + key)
+        assert pt["fold_events"] == jt["fold_events"]
+        assert pt["level_gen"] == jt["level_gen"]
+        assert (pt["seal_events"], pt["seal_reuses"]) == (jt["seal_events"], jt["seal_reuses"])
+        assert self.pplane.has_unfolded() == self.jplane.has_unfolded()
+
+    def ingest(self, n, step=97, check_every=True):
+        ts, vals = gen_events(self.seed, n)
+        self.seed += 1
+        for off in range(0, n, step):
+            sl = slice(off, off + step)
+            part = {k: v[sl] for k, v in vals.items()}
+            self.jw.add(ts[sl], part)
+            self.pw.add(ts[sl], part)
+            if check_every:
+                self.check(f"after add at {off}: ")
+        self.jw.flush()
+        self.pw.flush()
+        self.check("after flush: ")
+
+
+@pytest.fixture(scope="module", params=[1024, 96], ids=["roomy", "overflowing"])
+def twin(request):
+    tw = Twin(capacity=request.param)
+    tw.ingest(900)
+    return tw
+
+
+def test_ingest_steps_match_reference(twin):
+    # Ingest alone tripped minors and blocking majors in both planes.
+    tel = twin.pplane.telemetry()
+    assert tel["minor"].min() > 0 and tel["major"].min() > 0
+    assert tel["fold_events"].get("ingest", 0) > 0
+    if twin.pplane.programs.capacity < 200:
+        assert tel["overflow"].sum() > 0  # the small base overflows, as in the reference
+    else:
+        assert tel["overflow"].sum() == 0
+    twin.check("end of ingest: ")
+
+
+def test_publish_matches_reference(twin):
+    jd, pd = twin.jplane.publish(), twin.pplane.publish()
+    for name in ("rev_ts", "cols", "counts", "run_rev_ts", "run_cols", "run_counts",
+                 "mem_rev_ts", "mem_cols", "mem_counts"):
+        want = np.asarray(getattr(jd, name))
+        got = getattr(pd, name).numpy()
+        if name == "counts":
+            want = want.astype(np.int32)  # see DRIFTING_COUNTERS
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    # A second publish with nothing new reuses the snapshot.
+    assert twin.pplane.publish() is pd
+    twin.check("after publish: ")
+
+
+def test_compact_step_increments_match_reference(twin):
+    twin.ingest(300, check_every=False)
+    steps = 0
+    while True:
+        a, b = twin.jplane.compact_step(), twin.pplane.compact_step()
+        assert a == b
+        twin.check(f"after compact_step {steps}: ")
+        if not a:
+            break
+        steps += 1
+        # Publishing between increments reuses the sealed memtable.
+        twin.jplane.publish()
+        twin.pplane.publish()
+        twin.check(f"after publish at step {steps}: ")
+    assert steps > 0 and not twin.pplane.has_unfolded()
+
+
+def test_compact_after_more_ingest_matches_reference(twin):
+    twin.ingest(250, check_every=False)
+    assert twin.jplane.compact() == twin.pplane.compact()
+    twin.check("after compact: ")
+    assert twin.pplane.compact() == 0
+
+
+def test_carry_roundtrip_starts_port_from_reference_state():
+    tw = Twin(capacity=1024, seed=40)
+    tw.ingest(700, check_every=False)
+    assert np.asarray(tw.jplane.state["major"]).min() > 0  # int64 drift included
+    fresh = DistIngestPlane.for_store(tw.pstore, capacity=1024, device="cpu", **SIZES)
+    fresh.load_state(plane_state_from_numpy(numpy_state(tw.jplane.state), "cpu"))
+    assert_states_equal(tw.jplane.state, fresh.state)
+    np.testing.assert_array_equal(fresh.group._fill, np.asarray(tw.jplane._fill))
+    np.testing.assert_array_equal(fresh.group._runs_host, np.asarray(tw.jplane._runs_host))
+    # Both continue from the carried state in lockstep.
+    while tw.jplane.compact_step():
+        assert fresh.compact_step() == 1
+        assert_states_equal(tw.jplane.state, fresh.state, "carried: ")
+    assert fresh.compact_step() == 0
+
+
+def test_load_state_rejects_a_mismatched_state():
+    plane = DistIngestPlane(3, capacity=64, n_tablets=2, mem_rows=16, device="cpu")
+    state = dict(plane.state)
+    state["ev_base_k"] = torch.zeros((2, 65), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        plane.load_state(state)
+
+
+def test_plane_requires_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistIngestPlane(3, capacity=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistIngestPlane.for_store(EventStore(web_proxy_schema()), capacity=64)
+
+
+def test_sharded_plane_is_left_for_a_later_slice():
+    with pytest.raises(NotImplementedError):
+        DistIngestPlane(3, capacity=64, n_groups=2, device="cpu")
