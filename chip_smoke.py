@@ -11,25 +11,37 @@ no result line):
   reference  a small seeded workload through three paths that must agree
              bit for bit: the plane on the CPU (plain versions), the plane
              on the card (CUDA kernels), and a card plane started from the
-             CPU plane's state (core/carry.py); their scan totals must equal
-             the host EventStore's and the count in the generated events.
-  main path  the paper's §IV-A ingest loop and §IV-B scan queries at full
-             size: 4,194,304 synthetic web-proxy events through
-             DistBatchWriter into 64 tablets of capacity 131,072 (mem_rows
-             4096, max_runs 4); the runs left at the end are drained with
-             compact_step; publish(); scan and batched_scan for the
-             paper's query tiers A, B and C. The kernels' launch counters
-             are zeroed just before and read just after; both must be
-             nonzero. Every total must equal the count in the generated
-             events and a plain-version scan of the same snapshot on the
-             card.
+             CPU plane's state (core/carry.py); the totals of all four
+             schemes on the tier queries, an AND and an OR must equal the
+             host EventStore's and the count in the generated events.
+  main path  two paths at full size, each with every kernel launch count
+             zeroed just before it and read just after:
+             1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
+                synthetic web-proxy events through DistBatchWriter into 64
+                tablets of capacity 131,072 (mem_rows 4096, max_runs 4);
+                the runs left at the end are drained with compact_step;
+                publish(); scan and batched_scan for the paper's query
+                tiers A, B and C. merge_runs and filter_scan must launch.
+             2. density planning and the index schemes on the same
+                snapshot: index and batched_index for the tiers; all four
+                schemes on domain AND status=404 for tiers A and B (both
+                must plan two index conditions); both index schemes on
+                domain B OR domain C. merge_intersect and filter_scan must
+                launch. The device densities of the tiers must equal the
+                generated counts.
+             Every total must equal the count in the generated events and
+             a plain-version scan of the same snapshot on the card.
   kernels    each kernel against its plain version on the card at the
              main path's shapes (merge_runs: the K-way and 2-way stages of
              a major and the incremental fold, for the ev, ix and ag
-             families; filter_scan: the base, run and memtable levels),
-             with the error computed from the compared tensors (it must be
-             0), the kernel's time, its bound, the plain version's time
-             and, for merge_runs, a stable torch.sort of the same keys.
+             families; filter_scan: the base, run and memtable levels and
+             the index step's candidate rows; merge_intersect: the posting
+             slabs of one AND-B batch, and an int64 case), with the error
+             computed from the compared tensors (it must be 0), the
+             kernel's time, its bound, the plain version's time and, where
+             one PyTorch call computes the same function, that call's time
+             (a stable torch.sort for merge_runs, torch.isin for
+             merge_intersect).
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}. The full report
@@ -53,6 +65,9 @@ MERGE_SRC = "src/repro_torch/kernels/csrc/merge_runs.cu"
 FILTER_SRC = "src/repro_torch/kernels/csrc/filter_scan.cu"
 MERGE_REPLACES = "src/repro/kernels/merge_runs/merge_runs.py:93"
 FILTER_REPLACES = "src/repro/kernels/filter_scan/filter_scan.py:113"
+INTERSECT_SRC = "src/repro_torch/kernels/csrc/merge_intersect.cu"
+INTERSECT_REPLACES = "src/repro/kernels/merge_intersect/merge_intersect.py:73"
+SCHEMES = ("scan", "batched_scan", "index", "batched_index")
 # The main path's size: 4,194,304 events into 64 tablets of capacity
 # 131,072 (benchmarks/bench_ingest_scaling.py:214), mem_rows 4096,
 # max_runs 4, written by DistBatchWriter in chunks of 65,536 events.
@@ -154,9 +169,7 @@ def plain_scan_count(d, program, t0, t1):
 
     lo, hi = int(keypack.rev_ts(t1)), int(keypack.rev_ts(t0)) + 1
     total = 0
-    for rev, cols, live in ((d.rev_ts, d.cols, d.counts),
-                            (d.run_rev_ts, d.run_cols, d.run_counts),
-                            (d.mem_rev_ts, d.mem_cols, d.mem_counts)):
+    for rev, cols, live in d.ev_levels():
         r = rev.shape[-1]
         rev2 = rev.reshape(-1, r)
         probe = torch.tensor([lo, hi], dtype=rev.dtype, device=rev.device)
@@ -193,12 +206,13 @@ def torch_equal(x, y):
 
 def run_reference(seed, dev):
     """Small workload: CPU plane == card plane == carried card plane, and
-    their scan totals == the host store's == the generated events'."""
+    their densities and four schemes' totals == the host store's == the
+    generated events'."""
     import numpy as np
     from repro_torch.core.carry import plane_state_from_numpy
     from repro_torch.core.dist_ingest import DistBatchWriter, DistIngestPlane
     from repro_torch.core.dist_query import DistQueryProcessor
-    from repro_torch.core.filter import Eq
+    from repro_torch.core.filter import And, Eq, Or
     from repro_torch.core.schema import web_proxy_schema
     from repro_torch.core.store import EventStore
     from repro_torch.pipeline.sources import SyntheticWebProxySource, parse_web_proxy_lines
@@ -234,20 +248,32 @@ def run_reference(seed, dev):
             break
         steps += 1
     domain_counts = Counter(vals["domain"])
+    pair_counts = Counter(zip(vals["domain"], vals["status"]))
     tiers = pick_tiers(source, domain_counts)
+    queries = [(f"tier {tier}", Eq("domain", dom), domain_counts[dom])
+               for tier, dom in tiers.items()]
+    queries.append(("A and 404", And(Eq("domain", tiers["A"]), Eq("status", "404")),
+                    pair_counts[(tiers["A"], "404")]))
+    queries.append(("B or C", Or(Eq("domain", tiers["B"]), Eq("domain", tiers["C"])),
+                    domain_counts[tiers["B"]] + domain_counts[tiers["C"]]))
+    procs = {name: DistQueryProcessor(host, plane, device=plane.device)
+             for name, plane in planes.items()}
     for tier, dom in tiers.items():
-        tree = Eq("domain", dom)
-        want = domain_counts[dom]
+        dens = {name: dq.agg_count("domain", dom, 0, T_SPAN) for name, dq in procs.items()}
+        dens["host"] = host.agg_count("domain", dom, 0, T_SPAN)
+        check(all(v == domain_counts[dom] for v in dens.values()),
+              f"reference density of tier {tier}: {dens}, events hold {domain_counts[dom]}")
+    for label, tree, want in queries:
         got_host = host_scan_count(host, program_tensors(host, tree, "cpu"), 0, T_SPAN)
-        for name, plane in planes.items():
-            dq = DistQueryProcessor(host, plane, device=plane.device)
-            for scheme in ("scan", "batched_scan"):
+        for name, dq in procs.items():
+            for scheme in SCHEMES:
                 got = sum(b.count for b in dq.run_scheme(scheme, 0, T_SPAN, tree))
                 check(got == want == got_host,
-                      f"reference {tier} {scheme} on {name}: {got} != {want} (host {got_host})")
+                      f"reference {label} {scheme} on {name}: {got} != {want} (host {got_host})")
     log("reference", f"24000 events: card plane == CPU plane == carried plane bit for bit "
-        f"through ingest and {steps} compact_step increments; scan totals match the host "
-        f"store and the events for {tiers} ({time.perf_counter() - t0:.3f} s)")
+        f"through ingest and {steps} compact_step increments; densities and the totals of "
+        f"all four schemes match the host store and the events for {tiers}, an AND and an "
+        f"OR ({time.perf_counter() - t0:.3f} s)")
 
 
 def merge_inputs(pre, fam, sentinel):
@@ -332,6 +358,38 @@ def time_filter(name, cols, program, rich):
     }
 
 
+def time_intersect(name, a, b):
+    """merge_intersect against its plain version and against torch.isin on
+    keys offset by row ((row << shift) | key, so one flat call keeps the
+    rows apart; int32 keys shift by 32, int64 keys below 2**53 by 53)."""
+    import torch
+    from repro_torch.kernels.merge_intersect import member_mask, member_mask_keys
+
+    got = member_mask(a, b)
+    want = member_mask_keys(a, b)
+    rows, n = a.shape
+    m = b.shape[-1]
+    shift = 32 if a.dtype == torch.int32 else 53
+    check(int(a.min()) >= 0 and int(b.min()) >= 0 and max(int(a.max()), int(b.max())) < 2**shift,
+          f"{name}: keys do not fit the row offset")
+    off = torch.arange(rows, dtype=torch.int64, device=a.device)[:, None] << shift
+    a64, b64 = (off | a.long()).reshape(-1), (off | b.long()).reshape(-1)
+    isin = torch.isin(a64, b64).reshape(a.shape)
+    err = int((got.int() - want.int()).abs().max())
+    check(torch.equal(isin, got), f"{name}: torch.isin disagrees with the kernel")
+    return {
+        "shape": name, "dims": [rows, n, m], "dtype": str(a.dtype).replace("torch.", ""),
+        "max_abs_err": err, "live_probes": int((a < torch.iinfo(a.dtype).max).sum()),
+        "live_hits": int((got & (a < torch.iinfo(a.dtype).max)).sum()),
+        "ms": cuda_ms(lambda: member_mask(a, b)),
+        "plain_ms": cuda_ms(lambda: member_mask_keys(a, b)),
+        # Each probe and each set key read once, one bool written per probe.
+        "bound_ms": (rows * (n + m) * a.element_size() + rows * n) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.isin(a64, b64)),
+    }
+
+
 def summarize_spans(records):
     out = {}
     for r in records:
@@ -342,18 +400,71 @@ def summarize_spans(records):
     return out
 
 
+def run_query(dq, scheme, tree, label, want):
+    """One scheme run over the 4-hour range, with tracing on: time to the
+    first batch and to the last, the plan, the run's QueryStats, and its
+    spans. In an index-mode run every query.scan_range span is a batch that
+    truncated and fell back to the exact scan."""
+    from repro_torch import obs
+    from repro_torch.core.dist_query import QueryStats
+
+    obs.clear()
+    stats = QueryStats()
+    t0 = time.perf_counter()
+    it = dq.run_scheme(scheme, 0, T_SPAN, tree, stats=stats)
+    first = next(it, None)
+    ttfr = time.perf_counter() - t0
+    rows = first.count if first is not None else 0
+    for blk in it:
+        rows += blk.count
+    total_s = time.perf_counter() - t0
+    spans = summarize_spans(obs.get_tracer().records)
+    plan = stats.plan
+    q = {
+        "query": label, "scheme": scheme, "rows": rows, "want": want, "tree": tree,
+        "plan": plan.describe(), "mode": plan.mode, "n_conds": len(plan.index_conds),
+        "batches": stats.batches, "ttfr_s": ttfr, "total_s": total_s,
+        "fallbacks": spans.get("query.scan_range", {}).get("n", 0) if plan.mode == "index" else 0,
+        "index_keys_scanned": stats.index_keys_scanned,
+        "density_s": spans.get("query.density", {}).get("s", 0.0),
+        "scan_index_range_s": spans.get("query.scan_index_range", {}).get("s", 0.0),
+        "scan_range_s": spans.get("query.scan_range", {}).get("s", 0.0),
+        "spans": spans, "batch_log": stats.batch_log,
+    }
+    log("query", json.dumps({k: v for k, v in q.items()
+                             if k not in ("tree", "spans", "batch_log")}))
+    return q
+
+
 def run_main_path(seed, dev, size=MAIN_PATH):
     import numpy as np
     import torch
     from repro_torch import obs
     from repro_torch.core.dist_ingest import REV_PAD, KEY_PAD64, DistBatchWriter, DistIngestPlane
-    from repro_torch.core.dist_query import DistQueryProcessor
-    from repro_torch.core.filter import Eq, In, Not, Or
+    from repro_torch.core.dist_query import (
+        DistQueryProcessor,
+        _combine_postings,
+        _expand_level,
+        _posting_slabs,
+    )
+    from repro_torch.core.filter import And, Eq, In, Not, Or
+    from repro_torch.core.planner import plan_query
     from repro_torch.core.schema import web_proxy_schema
     from repro_torch.core.store import EventStore
     from repro_torch.kernels.filter_scan import ops as filter_ops
+    from repro_torch.kernels.merge_intersect import ops as intersect_ops
     from repro_torch.kernels.merge_runs import ops as merge_ops
     from repro_torch.pipeline.sources import SyntheticWebProxySource, parse_web_proxy_lines
+
+    kernel_ops = {"merge_runs": merge_ops, "filter_scan": filter_ops,
+                  "merge_intersect": intersect_ops}
+
+    def zero_launches():
+        for ops in kernel_ops.values():
+            ops.launches = 0
+
+    def read_launches():
+        return {name: ops.launches for name, ops in kernel_ops.items()}
 
     report = {}
     events, chunk = size["events"], size["chunk"]
@@ -365,9 +476,9 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     writer = DistBatchWriter(store, plane, batch_rows=chunk, writer_id=0)
     torch.cuda.reset_peak_memory_stats(dev)
     domain_counts = Counter()
+    pair_counts = Counter()
 
-    merge_ops.launches = 0
-    filter_ops.launches = 0
+    zero_launches()  # path 1: ingest and scans
     obs.enable()
     obs.clear()
     ingest_s = 0.0
@@ -375,6 +486,7 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         n = min(chunk, events - off)
         ts, vals = parse_web_proxy_lines(source.gen_lines(n, 0, T_SPAN))
         domain_counts.update(vals["domain"])
+        pair_counts.update(zip(vals["domain"], vals["status"]))
         t0 = time.perf_counter()
         writer.add(ts, vals)
         ingest_s += time.perf_counter() - t0
@@ -421,43 +533,70 @@ def run_main_path(seed, dev, size=MAIN_PATH):
 
     tiers = pick_tiers(source, domain_counts)
     dq = DistQueryProcessor(store, plane, device=dev)
+    eq = {tier: Eq("domain", dom) for tier, dom in tiers.items()}
     queries = []
-    for tier, dom in tiers.items():
+    for tier in tiers:
         for scheme in ("scan", "batched_scan"):
-            t0 = time.perf_counter()
-            it = dq.run_scheme(scheme, 0, T_SPAN, Eq("domain", dom))
-            first = next(it)
-            ttfr = time.perf_counter() - t0
-            rows, batches = first.count, 1
-            for blk in it:
-                rows += blk.count
-                batches += 1
-            total_s = time.perf_counter() - t0
-            q = {"query": tier, "domain": dom, "scheme": scheme, "rows": rows,
-                 "batches": batches, "ttfr_s": ttfr, "total_s": total_s}
-            queries.append(q)
-            log("query", json.dumps(q))
-    launches = {"merge_runs": merge_ops.launches, "filter_scan": filter_ops.launches}
-    query_spans = summarize_spans(obs.get_tracer().records)
+            queries.append(run_query(dq, scheme, eq[tier], tier, domain_counts[tiers[tier]]))
+    launches_1 = read_launches()
+    log("launches", "path 1 (ingest and scans): " + json.dumps(launches_1))
+    check(launches_1["merge_runs"] > 0 and launches_1["filter_scan"] > 0,
+          f"a kernel of path 1 never launched: {launches_1}")
+
+    # Path 2: density planning and the index schemes on the same snapshot.
+    zero_launches()
+    ands = {tier: And(eq[tier], Eq("status", "404")) for tier in ("A", "B")}
+    b_or_c = Or(eq["B"], eq["C"])
+    for tier in tiers:
+        for scheme in ("index", "batched_index"):
+            queries.append(run_query(dq, scheme, eq[tier], tier, domain_counts[tiers[tier]]))
+    for tier, tree in ands.items():
+        for scheme in SCHEMES:
+            queries.append(run_query(dq, scheme, tree, f"{tier} and 404",
+                                     pair_counts[(tiers[tier], "404")]))
+    for scheme in ("index", "batched_index"):
+        queries.append(run_query(dq, scheme, b_or_c, "B or C",
+                                 domain_counts[tiers["B"]] + domain_counts[tiers["C"]]))
+    launches_2 = read_launches()
     obs.disable()
-    log("launches", "main path: " + json.dumps(launches))
-    log("query", "spans " + json.dumps(query_spans))
-    check(launches["merge_runs"] > 0 and launches["filter_scan"] > 0,
-          f"a kernel of the main path never launched: {launches}")
-    report["queries"] = queries
-    report["query_spans"] = query_spans
-    report["launches"] = launches
+    log("launches", "path 2 (density and index): " + json.dumps(launches_2))
+    check(launches_2["merge_intersect"] > 0 and launches_2["filter_scan"] > 0,
+          f"a kernel of path 2 never launched: {launches_2}")
+    launches = {k: launches_1[k] + launches_2[k] for k in launches_1}
+    report["launches"] = {"total": launches, "path_1": launches_1, "path_2": launches_2}
 
     d = dq.dist
+    densities = {}
+    for tier, dom in tiers.items():
+        densities[tier] = dq.agg_count("domain", dom, 0, T_SPAN)
+        check(densities[tier] == domain_counts[dom],
+              f"device density of tier {tier} ({dom}): {densities[tier]}, events hold "
+              f"{domain_counts[dom]}")
+    n404 = sum(c for (_, st), c in pair_counts.items() if st == "404")
+    densities["status=404"] = dq.agg_count("status", "404", 0, T_SPAN)
+    check(densities["status=404"] == n404, f"device density of status=404: "
+          f"{densities['status=404']}, events hold {n404}")
+    report["densities"] = densities
+    log("density", json.dumps(densities) + " equal the generated counts")
     for q in queries:
-        program = program_tensors(store, Eq("domain", q["domain"]), dev)
-        want = domain_counts[q["domain"]]
-        plain = plain_scan_count(d, program, 0, T_SPAN)
-        check(q["rows"] == want == plain,
-              f"{q['query']} {q['scheme']}: {q['rows']} rows, events hold {want}, "
-              f"plain versions count {plain}")
-    log("check", "every scheme's total equals the generated events' count and the plain "
-        "versions' scan of the same snapshot on the card")
+        if q["query"].endswith("and 404") and q["scheme"].endswith("index"):
+            check(q["mode"] == "index" and q["n_conds"] == 2,
+                  f"{q['query']} planned {q['plan']}, not two index conditions")
+    plain = {}
+    scan_rows = {q["tree"]: q["rows"] for q in queries if q["scheme"] == "scan"}
+    for q in queries:
+        if q["tree"] not in plain:
+            plain[q["tree"]] = plain_scan_count(d, program_tensors(store, q["tree"], dev),
+                                                0, T_SPAN)
+        want_scan = scan_rows.get(q["tree"], plain[q["tree"]])  # B or C runs no scan
+        check(q["rows"] == q["want"] == plain[q["tree"]] == want_scan,
+              f"{q['query']} {q['scheme']}: {q['rows']} rows, events hold {q['want']}, "
+              f"plain versions count {plain[q['tree']]}, the scan scheme {want_scan}")
+    log("check", "every scheme's total equals the generated events' count, the scan "
+        "scheme's total and the plain versions' scan of the same snapshot on the card")
+    for q in queries:
+        q.pop("tree")
+    report["queries"] = queries
 
     # Each kernel against its plain version at the main path's shapes.
     merge_rows = []
@@ -476,7 +615,35 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         row = time_filter(name, cols, program, rich)
         filter_rows.append(row)
         log("kernel", json.dumps({"name": "filter_scan", **row}))
-    for rows in (merge_rows, filter_rows):
+    # The index step's inputs for the AND-B batch that expanded the most
+    # rows: the posting slabs merge_intersect probes, and the base level's
+    # candidate rows filter_scan re-checks.
+    and_b = next(q for q in queries if q["query"] == "B and 404" and q["scheme"] == "batched_index")
+    lo_t, hi_t, _, _ = max(and_b["batch_log"], key=lambda b: b[3])
+    plan = plan_query(dq, ands["B"], 0, T_SPAN, w=dq.w)
+    lo, hi = (torch.from_numpy(x).to(dev) for x in dq._cond_ranges(plan, int(lo_t), int(hi_t)))
+    slabs, _ = _posting_slabs(d, lo, hi, dq.index_postings)
+    cand, live = _combine_postings(slabs, plan.combine)
+    _, r_cols, _, _, _ = _expand_level(cand, live, d.rev_ts, d.cols, d.counts, dq.index_rows)
+    row = time_filter("index candidates (T,max_rows,F)", r_cols,
+                      program_tensors(store, ands["B"], dev), rich)
+    filter_rows.append(row)
+    log("kernel", json.dumps({"name": "filter_scan", **row}))
+    rng = np.random.default_rng(seed)
+    syn_b = np.sort(rng.integers(0, 2**53, slabs[:, 0].shape), axis=1)
+    syn_a = np.where(rng.random(syn_b.shape) < 0.5,
+                     np.take_along_axis(syn_b, rng.integers(0, syn_b.shape[1], syn_b.shape), 1),
+                     rng.integers(0, 2**53, syn_b.shape))
+    intersect_rows = []
+    for name, a, b in (("AND-B batch (T,S) int32", slabs[:, 0].contiguous(),
+                        slabs[:, 1].contiguous()),
+                       ("synthetic (T,S) int64", torch.from_numpy(syn_a).to(dev),
+                        torch.from_numpy(syn_b).to(dev))):
+        row = time_intersect(name, a, b)
+        intersect_rows.append(row)
+        log("kernel", json.dumps({"name": "merge_intersect", **row}))
+    report["and_b_batch"] = {"lo": lo_t, "hi": hi_t, "plan": plan.describe()}
+    for rows in (merge_rows, filter_rows, intersect_rows):
         for row in rows:
             check(row["max_abs_err"] == 0, f"kernel disagrees with its plain version: {row}")
 
@@ -493,6 +660,8 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     kernels = [
         summary("merge_runs", "cuda", MERGE_SRC, MERGE_REPLACES, merge_rows, "ix two_way"),
         summary("filter_scan", "cuda", FILTER_SRC, FILTER_REPLACES, filter_rows, "base (T,R,F)"),
+        summary("merge_intersect", "cuda", INTERSECT_SRC, INTERSECT_REPLACES, intersect_rows,
+                "AND-B batch (T,S) int32"),
     ]
     report["kernels"] = kernels
     return report

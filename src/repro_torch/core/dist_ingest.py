@@ -15,7 +15,8 @@ The LSM lifecycle runs as PyTorch steps over that state:
              that tripped it (the paper's backpressure)
     fold     one increment of major compaction: the top run slot folds
              into the base (compact_step)
-    seal     publish(): a fill-bounded sorted copy of the event memtables
+    seal     publish(): a fill-bounded sorted copy of every family's
+             memtable
 
 Each tablet owns three table families, kept in lockstep:
 
@@ -297,18 +298,24 @@ class _PlanePrograms:
         return out
 
     def seal(self, st: Dict[str, torch.Tensor], seal_rows: int
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Sorted copy of the event memtables' live heads, the level the
-        scan path reads: only the first seal_rows slots are sorted; the
-        output keeps the full (T, mem_rows) shape with a sentinel tail.
-        Returns (keys, cols, live counts)."""
-        m, h = self.mem_rows, seal_rows
-        n = st["ev_mem_n"]
-        hk, hc = _sort_masked(st["ev_mem_k"][:, :h], st["ev_mem_c"][:, :h], n, REV_PAD)
-        t = hk.shape[0]
-        keys = torch.cat([hk, hk.new_full((t, m - h), REV_PAD)], dim=1)
-        cols = torch.cat([hc, hc.new_zeros((t, m - h, self.n_fields))], dim=1)
-        return keys, cols, n.clone()
+             ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Sorted copy of every family's memtable live head, the level the
+        reads search: only the head is sorted — seal_rows slots of the
+        event memtable, n_indexed times that for the ix and ag memtables,
+        which take one entry per indexed field per event — and the output
+        keeps the full (T, mem_rows) shape with a sentinel tail. Returns
+        {family: (keys, cols, live counts)}."""
+        out = {}
+        for f in self.families:
+            p, m = f.name, f.mem_rows
+            h = min(seal_rows * (m // self.mem_rows), m)
+            n = st[f"{p}_mem_n"]
+            hk, hc = _sort_masked(st[f"{p}_mem_k"][:, :h], st[f"{p}_mem_c"][:, :h], n, f.sentinel)
+            t = hk.shape[0]
+            keys = torch.cat([hk, hk.new_full((t, m - h), f.sentinel)], dim=1)
+            cols = torch.cat([hc, hc.new_zeros((t, m - h, f.width))], dim=1)
+            out[p] = (keys, cols, n.clone())
+        return out
 
 
 class TabletGroup:
@@ -332,7 +339,8 @@ class TabletGroup:
         # and "runs"; a fold into the base bumps "runs" and "base". The
         # sealed memtable is reused while "mem" is unchanged.
         self._gen: Dict[str, int] = {"mem": 0, "runs": 0, "base": 0}  # guarded-by: lock
-        self._sealed_cache: Optional[Tuple[int, Tuple[torch.Tensor, ...], int]] = None  # guarded-by: lock
+        # ("mem" generation, {family: sealed (keys, cols, counts)})
+        self._sealed_cache: Optional[Tuple[int, Dict[str, tuple]]] = None  # guarded-by: lock
         self.state: Dict[str, torch.Tensor] = programs.init_state()  # guarded-by: lock
 
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
@@ -443,31 +451,45 @@ class TabletGroup:
 
     # -------------------------------------------------------------- reads
     def snapshot(self) -> DistStore:
-        """A query-visible DistStore of every level of the event family:
+        """A query-visible DistStore of every level of the three families:
         the base and run slabs by reference, and a sealed (sorted) copy of
         the memtables — O(live fill) device work, no fold. Reused as is when
-        nothing changed since the last snapshot."""
+        nothing changed since the last snapshot; the sealed memtables are
+        reused while the "mem" generation is unchanged."""
         with self.lock.hold("publish_seal"):
             if not self._dirty and self._published is not None:
                 return self._published
             pr = self.programs
             gen_mem = self._gen["mem"]
             if self._sealed_cache is not None and self._sealed_cache[0] == gen_mem:
-                _, sealed, seal_rows = self._sealed_cache
+                sealed = self._sealed_cache[1]
                 self._m_seal.inc(event="reuse")
             else:
                 seal_rows = pr.seal_bucket(int(self._fill.max()))
                 with span("ingest.seal", cat="ingest", seal_rows=seal_rows):
                     sealed = pr.seal(self.state, seal_rows)
-                self._sealed_cache = (gen_mem, sealed, seal_rows)
+                self._sealed_cache = (gen_mem, sealed)
                 self._m_seal.inc(event="seal")
             s = self.state
-            mem_k, mem_c, mem_n = sealed
-            self._published = DistStore(
+            ev_k, ev_c, ev_n = sealed["ev"]
+            levels = dict(
                 rev_ts=s["ev_base_k"], cols=s["ev_base_c"], counts=s["ev_base_n"],
                 run_rev_ts=s["ev_run_k"], run_cols=s["ev_run_c"], run_counts=s["ev_run_n"],
-                mem_rev_ts=mem_k, mem_cols=mem_c, mem_counts=mem_n,
+                mem_rev_ts=ev_k, mem_cols=ev_c, mem_counts=ev_n,
             )
+            if "ix" in sealed:
+                ix_k, _, ix_n = sealed["ix"]
+                ag_k, ag_c, ag_n = sealed["ag"]
+                levels.update(
+                    ix_keys=s["ix_base_k"], ix_counts=s["ix_base_n"],
+                    ix_run_k=s["ix_run_k"], ix_run_n=s["ix_run_n"],
+                    ix_mem_k=ix_k, ix_mem_n=ix_n,
+                    ag_keys=s["ag_base_k"], ag_vals=s["ag_base_c"], ag_counts=s["ag_base_n"],
+                    ag_run_k=s["ag_run_k"], ag_run_c=s["ag_run_c"], ag_run_n=s["ag_run_n"],
+                    ag_mem_k=ag_k, ag_mem_c=ag_c, ag_mem_n=ag_n,
+                    agg_bucket_s=pr.agg_bucket_s,
+                )
+            self._published = DistStore(**levels)
             self._dirty = False
             return self._published
 

@@ -72,6 +72,9 @@ class EventSchema:
     def field_names(self) -> List[str]:
         return [f.name for f in self.fields]
 
+    def is_indexed(self, name: str) -> bool:
+        return self.fields[self._field_ids[name]].indexed
+
     @property
     def n_fields(self) -> int:
         return len(self.fields)

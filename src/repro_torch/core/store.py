@@ -131,3 +131,16 @@ class EventStore:
         if not self.total_rows or self.ts_min is None:
             return 1.0
         return self.total_rows / max(self.ts_max - self.ts_min, 1)
+
+    def agg_count(self, field: str, value: str, t_start: int, t_stop: int) -> int:
+        """The planner's density input (paper §III-B): occurrences of
+        field=value in the bucketed time range, from the aggregate table."""
+        code = self.dictionaries[field].lookup(value)
+        if code is None:
+            return 0
+        fid = self.schema.field_id(field)
+        b0 = int(t_start) // self.agg_bucket_seconds
+        b1 = int(t_stop) // self.agg_bucket_seconds
+        lo = keypack.pack_agg_key(fid, code, b0)
+        hi = keypack.pack_agg_key(fid, code, b1) + 1
+        return self.agg_tablet.count_range(int(lo), int(hi))

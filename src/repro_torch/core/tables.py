@@ -140,3 +140,9 @@ class AggregateTablet(Tablet):
         ukeys, sums = _combine_sorted(k, c[:, 0])
         self.runs = [SortedRun(ukeys, sums[:, None].astype(self.col_dtype))]
         self.major_compactions += 1
+
+    def count_range(self, lo: int, hi: int) -> int:
+        """Total count over an aggregate-key range, summed across runs (so
+        duplicates not yet combined count too)."""
+        _, cols = self.scan_range(lo, hi)
+        return int(cols[:, 0].astype(np.int64).sum()) if cols.size else 0

@@ -96,6 +96,10 @@ def load_library() -> ctypes.CDLL:
             fn.restype = i
         lib.filter_scan_rows.argtypes = [vp, ll, i, vp, i, vp, i, i, vp, vp]
         lib.filter_scan_rows.restype = i
+        for name in ("member_mask_i32", "member_mask_i64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, ll, ll, ll, vp, vp]
+            fn.restype = i
         _lib = lib
         return lib
 

@@ -13,10 +13,12 @@ import torch
 
 from repro_torch.core import filter as pf
 from repro_torch.core.dist_ingest import DistBatchWriter, DistIngestPlane
-from repro_torch.core.dist_query import DistQueryProcessor
+from repro_torch.core.dist_query import DistQueryProcessor, QueryStats
 from repro_torch.core.schema import web_proxy_schema
 from repro_torch.core.store import EventStore
 from repro_torch.kernels.filter_scan import filter_scan, ops as filter_ops, pad_program
+from repro_torch.kernels.merge_intersect import member_mask, member_mask_keys
+from repro_torch.kernels.merge_intersect import ops as intersect_ops
 from repro_torch.kernels.merge_runs import (
     merge_pair_device,
     merge_ranks,
@@ -167,3 +169,64 @@ def test_card_plane_matches_cpu_plane(cuda):
     while cpu.compact_step():
         assert card.compact_step() == 1
         assert all(torch.equal(cpu.state[k], card.state[k].cpu()) for k in cpu.state)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 1000, 17), (5, 7, 0), (4, 0, 5),
+                                   (2, 3, 4097, 300), (64, 12288, 12288)])
+def test_member_mask_kernel_matches_plain_version(cuda, dtype, shape):
+    *lead, n, m = shape
+    rng = np.random.default_rng(sum(shape))
+    sentinel = np.iinfo(dtype).max
+    hi = 2**53 if dtype == np.int64 else 2**31 - 1
+    b = np.sort(rng.integers(0, hi, (*lead, m)).astype(dtype), axis=-1)
+    if m:
+        b[..., -1] = sentinel  # the pad is an ordinary key
+    pool = np.concatenate([b.reshape(-1), rng.integers(0, hi, max(n, 1)).astype(dtype),
+                           np.asarray([0, sentinel], dtype)])
+    a = rng.choice(pool, (*lead, n)).astype(dtype)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    before = intersect_ops.launches
+    got = member_mask(ta, tb)
+    torch.cuda.synchronize()
+    assert intersect_ops.launches == before + (1 if a.size else 0)
+    assert got.dtype == torch.bool and got.shape == ta.shape and got.device == ta.device
+    assert torch.equal(got, member_mask_keys(ta, tb))
+    assert torch.equal(got.cpu(), member_mask_keys(torch.from_numpy(a), torch.from_numpy(b)))
+
+
+def test_card_index_schemes_match_cpu_plane(cuda):
+    rng = np.random.default_rng(9)
+    n = 6000
+    ts = np.sort(rng.integers(0, 14400, n))
+    vals = {"domain": rng.choice(["a.com", "b.com", "c.com"], n, p=[0.6, 0.3, 0.1]).tolist(),
+            "status": rng.choice(["200", "404"], n, p=[0.8, 0.2]).tolist()}
+    store = EventStore(web_proxy_schema())
+    sizes = dict(n_tablets=4, mem_rows=128, max_runs=2, append_rows=64, capacity=2048)
+    planes = [DistIngestPlane.for_store(store, device=d, **sizes) for d in ("cpu", cuda)]
+    for plane in planes:
+        w = DistBatchWriter(store, plane, batch_rows=700, writer_id=4)
+        w.add(ts, vals)
+        w.close()
+    trees = [pf.Eq("domain", "c.com"), pf.And(pf.Eq("domain", "c.com"), pf.Eq("status", "404")),
+             pf.Or(pf.Eq("domain", "b.com"), pf.Eq("domain", "c.com")),
+             pf.Eq("domain", "never-seen")]
+    procs = [DistQueryProcessor(store, plane, device=plane.device) for plane in planes]
+    for tree in trees:
+        for f, v in [("domain", "c.com"), ("status", "404")]:
+            assert procs[0].agg_count(f, v, 0, 14400) == procs[1].agg_count(f, v, 0, 14400)
+        for scheme in ("index", "batched_index"):
+            totals, modes = [], []
+            for dq in procs:
+                stats = QueryStats()
+                totals.append(sum(b.count for b in dq.run_scheme(scheme, 0, 14400, tree,
+                                                                 stats=stats)))
+                modes.append(stats.plan.mode)
+            want = sum(b.count for b in procs[0].run_scheme("scan", 0, 14400, tree))
+            assert totals[0] == totals[1] == want and modes[0] == modes[1]
+    d_cpu, d_card = (dq._sync() for dq in procs)
+    for name in ("ix_keys", "ix_mem_k", "ag_keys", "ag_vals", "ag_mem_k", "ag_mem_c"):
+        assert torch.equal(getattr(d_cpu, name), getattr(d_card, name).cpu()), name
+    before = intersect_ops.launches
+    list(procs[1].run_scheme("index", 0, 3600, trees[1]))
+    assert intersect_ops.launches > before

@@ -138,11 +138,78 @@ def test_filter_plans_match_reference(i):
     assert type(pp.residual).__name__ == type(jp.residual).__name__
 
 
-def test_index_planning_waits_for_the_index_slice():
-    ps = EventStore(web_proxy_schema())
-    with pytest.raises(NotImplementedError, match="index"):
-        plan_query(ps, pf.Eq("domain", "x.com"), 0, 3600)
-    assert plan_query(ps, None, 0, 3600).mode == "filter"
+@pytest.fixture(scope="module")
+def planner_stores():
+    """Both host stores over the same events, with every density regime
+    the heuristics tell apart: x.com 10 rows, status s99 99 and s100 100
+    rows (just under and at w = 10 times x.com's density), and common
+    values in the thousands."""
+    rng = np.random.default_rng(12)
+    n = 3000
+    vals = {"domain": rng.choice(["y.com", "z.org"], n).tolist(),
+            "status": rng.choice(["200", "404"], n).tolist(),
+            "method": rng.choice(["GET", "PUT", "POST"], n).tolist()}
+    vals["domain"][:10] = ["x.com"] * 10
+    vals["status"][10:109] = ["s99"] * 99
+    vals["status"][109:209] = ["s100"] * 100
+    ts = np.sort(rng.integers(0, 14400, n))
+    kw = dict(n_shards=3, flush_rows=500, max_runs=2)
+    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw)
+    js.ingest(ts, vals)
+    ps.ingest(ts, vals)
+    return js, ps
+
+
+def index_trees(lib):
+    eq, in_, not_, and_, or_ = lib
+    return [
+        eq("domain", "x.com"),  # heuristic 1
+        eq("domain", "never-seen"),  # heuristic 1, zero density: empty
+        or_(eq("domain", "x.com"), eq("status", "404")),  # heuristic 2
+        or_(eq("domain", "x.com"), in_("status", ("404",))),  # not all Eq: heuristic 4
+        and_(eq("domain", "x.com"), eq("status", "s99")),  # 99 < 10 * 10: both indexed
+        and_(eq("domain", "x.com"), eq("status", "s100")),  # 100 = 10 * 10: s100 is residual
+        and_(eq("domain", "y.com"), eq("status", "404"), not_(eq("method", "GET"))),
+        and_(eq("domain", "x.com"), eq("domain", "never-seen"), eq("status", "200")),  # empty
+        and_(in_("method", ("GET",)), not_(eq("status", "200"))),  # no Eq child: heuristic 4
+        not_(eq("domain", "x.com")),  # heuristic 4
+        None,
+    ]
+
+
+@pytest.mark.parametrize("i", range(11))
+@pytest.mark.parametrize("w", [10.0, 2.0])
+@pytest.mark.parametrize("t_range", [(0, 14400), (3600, 7199)])
+def test_index_plans_match_reference(planner_stores, i, w, t_range):
+    js, ps = planner_stores
+    jp = jax_plan_query(js, index_trees((JEq, JIn, JNot, JAnd, JOr))[i], *t_range, w=w)
+    pp = plan_query(ps, index_trees((pf.Eq, pf.In, pf.Not, pf.And, pf.Or))[i], *t_range, w=w)
+    assert (pp.mode, pp.combine) == (jp.mode, jp.combine)
+    assert [(c.field, c.value, c.density) for c in pp.index_conds] == [
+        (c.field, c.value, c.density) for c in jp.index_conds]
+    assert type(pp.residual).__name__ == type(jp.residual).__name__
+    assert pp.describe() == jp.describe()
+
+
+def test_w_boundary_selects_like_the_reference(planner_stores):
+    _, ps = planner_stores
+    under = plan_query(ps, pf.And(pf.Eq("domain", "x.com"), pf.Eq("status", "s99")), 0, 14400)
+    at = plan_query(ps, pf.And(pf.Eq("domain", "x.com"), pf.Eq("status", "s100")), 0, 14400)
+    assert [c.value for c in under.index_conds] == ["x.com", "s99"]
+    assert [c.value for c in at.index_conds] == ["x.com"]
+    assert at.residual == pf.And(pf.Eq("status", "s100"))
+    assert plan_query(ps, pf.Eq("domain", "x.com"), 0, 14400, use_index=False).mode == "filter"
+
+
+@pytest.mark.parametrize("fv", [("domain", "x.com"), ("status", "s100"), ("method", "PUT"),
+                                ("domain", "never-seen")])
+def test_host_agg_count_matches_reference(planner_stores, fv):
+    js, ps = planner_stores
+    for t0, t1 in [(0, 14400), (3600, 7199), (5000, 5000), (7200, 3600)]:
+        assert ps.agg_count(*fv, t0, t1) == js.agg_count(*fv, t0, t1)
+    want = {"x.com": 10, "s100": 100}.get(fv[1])
+    if want is not None:
+        assert ps.agg_count(*fv, 0, 14400) == want
 
 
 def test_host_store_tablets_match_reference():

@@ -2,7 +2,8 @@
 
 On the CPU the wrappers run their plain versions; these tests hold those
 to the reference's Pallas kernels (interpret mode) and jnp references on
-the same numpy-seeded inputs, bit for bit and with equal dtypes. The CUDA
+the same numpy-seeded inputs, bit for bit and with equal dtypes (the
+tolerance is none: every value is an integer or a bool). The CUDA
 kernels themselves are held to the same plain versions on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -13,6 +14,8 @@ import torch
 
 from repro.kernels.common import split_key_lanes
 from repro.kernels.filter_scan import filter_scan as jax_filter_scan
+from repro.kernels.merge_intersect import member_mask_keys as jax_member_mask_keys
+from repro.kernels.merge_intersect.merge_intersect import intersect_mask_pallas
 from repro.kernels.merge_runs import (
     merge_pair_device as jax_merge_pair_device,
     merge_ranks_pallas,
@@ -29,6 +32,7 @@ from repro_torch.core import filter as pf
 from repro_torch.core.schema import web_proxy_schema
 from repro_torch.core.store import EventStore
 from repro_torch.kernels.filter_scan import filter_scan, pad_program
+from repro_torch.kernels.merge_intersect import member_mask, member_mask_keys
 from repro_torch.kernels.merge_runs import (
     merge_pair_device,
     merge_ranks,
@@ -266,3 +270,87 @@ def test_filter_scan_takes_leading_level_dims(stores):
     assert torch.equal(shaped.reshape(-1), flat)
     with pytest.raises(TypeError):
         filter_scan(torch.from_numpy(cols).long(), *program)
+
+
+# --------------------------------------------------------- merge_intersect
+def membership_rows(rng, dtype, rows, n, m, edge):
+    """(rows, n) probes and (rows, m) sorted sets with duplicates on both
+    sides, about half the probes present; ``edge`` keys (0, 2**31 - 1, and
+    for int64 2**53 - 1 and the INT64_MAX pad) are planted in both."""
+    sentinel = np.iinfo(dtype).max
+    a = np.empty((rows, n), dtype)
+    b = np.full((rows, m), sentinel, dtype)
+    for r in range(rows):
+        live = [0, m, int(rng.integers(0, m + 1))][r % 3]  # empty, full, ragged
+        pool = np.concatenate([rng.integers(0, 60, 2 * max(n, m)).astype(dtype),
+                               np.asarray(edge, dtype)])
+        b[r, :live] = np.sort(rng.choice(pool, live))
+        a[r] = rng.choice(np.concatenate([pool, b[r]]), n)
+    return a, b
+
+
+EDGES = {np.int32: [0, 2**31 - 1], np.int64: [0, 2**31 - 1, 2**53 - 1, np.iinfo(np.int64).max]}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("shape", [(1, 40, 16), (6, 33, 7), (3, 5, 64), (4, 0, 9), (4, 9, 0)])
+def test_member_mask_matches_reference(dtype, shape):
+    rows, n, m = shape
+    a, b = membership_rows(np.random.default_rng(sum(shape)), dtype, rows, n, m, EDGES[dtype])
+    got = member_mask_keys(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.bool and got.shape == (rows, n)
+    assert torch.equal(member_mask(torch.from_numpy(a), torch.from_numpy(b)), got)
+    for r in range(rows):
+        if m == 0:
+            assert not got[r].any()  # the reference cannot index an empty set
+            continue
+        want = np.asarray(jax_member_mask_keys(jnp.asarray(b[r]), jnp.asarray(b[r])))
+        assert want.all()  # every key of a set is in it
+        want = np.asarray(jax_member_mask_keys(jnp.asarray(a[r]), jnp.asarray(b[r])))
+        np.testing.assert_array_equal(got[r].numpy(), want)
+        np.testing.assert_array_equal(got[r].numpy(), np.isin(a[r], b[r]))
+
+
+def test_member_mask_on_all_sentinel_rows_and_batched_dims():
+    # Leading dims (2, 3) as (tablets, levels); one row of the set holds
+    # only the sentinel, which is an ordinary value to the mask.
+    rng = np.random.default_rng(5)
+    a, b = membership_rows(rng, np.int32, 6, 21, 12, EDGES[np.int32])
+    b[4] = np.iinfo(np.int32).max
+    a[4, :3] = np.iinfo(np.int32).max
+    got = member_mask(torch.from_numpy(a).reshape(2, 3, 21), torch.from_numpy(b).reshape(2, 3, 12))
+    assert got.shape == (2, 3, 21)
+    assert got.reshape(6, 21)[4].tolist() == [True] * 3 + [False] * 18
+    for r in range(6):
+        want = np.asarray(jax_member_mask_keys(jnp.asarray(a[r]), jnp.asarray(b[r])))
+        np.testing.assert_array_equal(got.reshape(6, 21)[r].numpy(), want)
+
+
+def test_member_mask_matches_the_pallas_kernel():
+    # The TPU kernel on (hi, lo) lanes, interpret mode: A a multiple of its
+    # block, B padded to a power of two with +INF in (hi, lo-unsigned) order.
+    rng = np.random.default_rng(8)
+    b = np.unique(np.concatenate([rng.integers(0, 1 << 52, 900), [0, 2**31 - 1, 2**53 - 1,
+                                                                 (1 << 32) - 2]]))
+    a = rng.choice(np.concatenate([b, rng.integers(0, 1 << 52, 900)]), 2048).astype(np.int64)
+    got = member_mask(torch.from_numpy(a), torch.from_numpy(b))
+    a_hi, a_lo = split_key_lanes(a)
+    b_hi = np.full(1024, np.iinfo(np.int32).max, np.int32)
+    b_lo = np.full(1024, -1, np.int32)
+    b_hi[: b.size], b_lo[: b.size] = split_key_lanes(b)
+    want = np.asarray(intersect_mask_pallas(*map(jnp.asarray, (a_hi, a_lo, b_hi, b_lo)),
+                                            interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.any() and not got.all()
+
+
+def test_member_mask_rejects_what_the_kernel_does_not_take():
+    a = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        member_mask(a, a.long())
+    with pytest.raises(TypeError):
+        member_mask(a.float(), a.float())
+    with pytest.raises(ValueError):
+        member_mask(a, torch.zeros((3, 5), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        member_mask(torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int32))

@@ -129,12 +129,6 @@ def test_scheme_totals_match_reference(twin, scheme, i):
     assert all(a.hi < b.lo for a, b in zip(blocks, blocks[1:]))
 
 
-@pytest.mark.parametrize("scheme", ["index", "batched_index"])
-def test_index_schemes_name_the_next_slice(twin, scheme):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        twin["pq"].run_scheme(scheme, 0, T_SPAN, PTREES[0])
-
-
 def test_publish_between_queries_sees_new_rows(twin):
     pq, pplane = twin["pq"], twin["pplane"]
     before = pq.scan_range(PTREES[3], 0, T_SPAN)[0]
