@@ -13,8 +13,13 @@ no result line):
              on the card (CUDA kernels), and a card plane started from the
              CPU plane's state (core/carry.py); the totals of all four
              schemes on the tier queries, an AND and an OR must equal the
-             host EventStore's and the count in the generated events.
-  main path  two paths at full size, each with every kernel launch count
+             host EventStore's and the count in the generated events; the
+             three aggregation specs below, on tiers A and C and on A AND
+             404, must give the same groups, values and counts from the
+             host QueryProcessor on the CPU and on the card and from
+             aggregate_range on the CPU plane and the card plane, on a scan
+             plan and an index plan.
+  main path  three paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -29,19 +34,40 @@ no result line):
                 domain B OR domain C. merge_intersect and filter_scan must
                 launch. The device densities of the tiers must equal the
                 generated counts.
+             3. scan-time aggregation on the same snapshot: the host
+                EventStore(n_shards=8) is filled with the same events, as
+                the writer encoded them, then flushed and compacted
+                (set-up, untimed); for (a) count per status per hour, (b)
+                sum of bytes_in per method per hour and (c) max of
+                bytes_out per status, on domain = tier A, B and C and on
+                A AND status=404: the host QueryProcessor's combine_scan
+                scheme on the card (time to the first and the last
+                AggregateBlock) and DistQueryProcessor.aggregate_range on
+                scan and index plans. Host and device must agree bit for
+                bit, and every count total must equal the generated count.
+                combine_scan, filter_scan and merge_intersect must launch.
              Every total must equal the count in the generated events and
              a plain-version scan of the same snapshot on the card.
+             aggregate_combine must launch on path 1, once per major and
+             per fold increment (the aggregate family's combiner).
   kernels    each kernel against its plain version on the card at the
              main path's shapes (merge_runs: the K-way and 2-way stages of
              a major and the incremental fold, for the ev, ix and ag
              families; filter_scan: the base, run and memtable levels and
              the index step's candidate rows; merge_intersect: the posting
-             slabs of one AND-B batch, and an int64 case), with the error
-             computed from the compared tensors (it must be 0), the
-             kernel's time, its bound, the plain version's time and, where
-             one PyTorch call computes the same function, that call's time
-             (a stable torch.sort for merge_runs, torch.isin for
-             merge_intersect).
+             slabs of one AND-B batch, and an int64 case; combine_scan:
+             all four ops on the largest tier-A batch of path 3 and on
+             1,048,576 synthetic rows with one group over many tiles and a
+             filter that rejects half its rows; aggregate_combine: the
+             aggregate family's 2-way major and fold inputs and an int32
+             combine_sorted_counts case), with the error computed from the
+             compared tensors (it must be 0), the kernel's time, its
+             bound, the plain version's time and, where one PyTorch call
+             computes the same function, that call's time (a stable
+             torch.sort for merge_runs, torch.isin for merge_intersect;
+             none for combine_scan and aggregate_combine, which also
+             record torch.unique_consecutive + torch.segment_reduce as a
+             two-call yardstick).
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}. The full report
@@ -67,7 +93,12 @@ MERGE_REPLACES = "src/repro/kernels/merge_runs/merge_runs.py:93"
 FILTER_REPLACES = "src/repro/kernels/filter_scan/filter_scan.py:113"
 INTERSECT_SRC = "src/repro_torch/kernels/csrc/merge_intersect.cu"
 INTERSECT_REPLACES = "src/repro/kernels/merge_intersect/merge_intersect.py:73"
+COMBINE_SRC = "src/repro_torch/kernels/csrc/combine_scan.cu"
+COMBINE_REPLACES = "src/repro/kernels/combine_scan/combine_scan.py:99"
+AGGREGATE_SRC = "src/repro_torch/kernels/csrc/aggregate_combine.cu"
+AGGREGATE_REPLACES = "src/repro/kernels/aggregate_combine/aggregate_combine.py:54"
 SCHEMES = ("scan", "batched_scan", "index", "batched_index")
+OPS = ("count", "sum", "min", "max")
 # The main path's size: 4,194,304 events into 64 tablets of capacity
 # 131,072 (benchmarks/bench_ingest_scaling.py:214), mem_rows 4096,
 # max_runs 4, written by DistBatchWriter in chunks of 65,536 events.
@@ -189,8 +220,32 @@ def host_scan_count(store, program, t0, t1):
     from repro_torch.kernels.filter_scan import filter_scan
 
     cpu_prog = tuple(p.cpu() for p in program)
-    return sum(int(filter_scan(torch.from_numpy(cols), *cpu_prog).sum())
-               for _, cols in scan_events(store, t0, t1))
+    return sum(int(filter_scan(torch.from_numpy(b.cols), *cpu_prog).sum())
+               for b in scan_events(store, t0, t1))
+
+
+def agg_specs():
+    """The aggregation specs: (a) the repo's AGG_SPEC
+    (benchmarks/bench_query_runtime.py:34), (b) a sum of bytes_in, whose
+    tier-A totals overflow int32, (c) a max."""
+    from repro_torch.core import AggregateSpec
+
+    return {
+        "a count/status/hour": AggregateSpec(group_by=("status",), op="count",
+                                             time_bucket_s=3600),
+        "b sum bytes_in/method/hour": AggregateSpec(group_by=("method",), op="sum",
+                                                    value_field="bytes_in", time_bucket_s=3600),
+        "c max bytes_out/status": AggregateSpec(group_by=("status",), op="max",
+                                                value_field="bytes_out"),
+    }
+
+
+def same_aggregates(a, b):
+    """Equal groups, values and counts (values compared across the host's
+    int32 and the device's int64 counts)."""
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in ("gids", "values", "counts"))
 
 
 def states_equal(a, b):
@@ -270,10 +325,31 @@ def run_reference(seed, dev):
                 got = sum(b.count for b in dq.run_scheme(scheme, 0, T_SPAN, tree))
                 check(got == want == got_host,
                       f"reference {label} {scheme} on {name}: {got} != {want} (host {got_host})")
+    from repro_torch.core import QueryProcessor
+
+    hosts = {"host cpu": QueryProcessor(host, device="cpu"),
+             "host card": QueryProcessor(host, device=dev)}
+    for sname, spec in agg_specs().items():
+        for label, tree, want in (queries[0], queries[2], queries[3]):
+            results = {name: qp.aggregate(spec, 0, T_SPAN, tree) for name, qp in hosts.items()}
+            for name, dq in procs.items():
+                for use_index in (False, True):
+                    plan = "index" if use_index else "scan"
+                    results[f"{name} plane {plan} plan"] = dq.aggregate_range(
+                        spec, tree, 0, T_SPAN, use_index=use_index)
+            base = results["host cpu"]
+            for name, res in results.items():
+                check(same_aggregates(res, base),
+                      f"reference {label} {sname}: {name} differs from the CPU host processor")
+            check(int(base.counts.sum()) == want,
+                  f"reference {label} {sname}: counts sum to {base.counts.sum()}, "
+                  f"events hold {want}")
     log("reference", f"24000 events: card plane == CPU plane == carried plane bit for bit "
         f"through ingest and {steps} compact_step increments; densities and the totals of "
         f"all four schemes match the host store and the events for {tiers}, an AND and an "
-        f"OR ({time.perf_counter() - t0:.3f} s)")
+        f"OR; the three aggregation specs agree across the host processor (CPU, card) and "
+        f"aggregate_range (CPU plane, card plane; scan and index plans) "
+        f"({time.perf_counter() - t0:.3f} s)")
 
 
 def merge_inputs(pre, fam, sentinel):
@@ -390,6 +466,168 @@ def time_intersect(name, a, b):
     }
 
 
+def time_combine(name, keys, vals, cols, program, op):
+    """combine_scan against its plain version on one sorted batch."""
+    from repro_torch.kernels.combine_scan import combine_scan_ref, combine_segments
+
+    v = None if op == "count" else vals
+    got = combine_segments(keys, v, cols, *program, op)
+    want = combine_scan_ref(keys, vals, cols, *program, op)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    n, f = cols.shape
+    # Keys, values (not read for count) and codes read once; a head flag,
+    # an int64 aggregate and an int32 count written once per row.
+    read = n * (8 + (0 if op == "count" else 4) + 4 * f)
+    return {
+        "shape": f"{name} {op}", "dims": [n, f], "dtype": "int64 keys, int32 values and codes",
+        "groups": int(got[0].sum()), "max_abs_err": err,
+        "ms": cuda_ms(lambda: combine_segments(keys, v, cols, *program, op)),
+        "plain_ms": cuda_ms(lambda: combine_scan_ref(keys, vals, cols, *program, op)),
+        "bound_ms": (read + n * 13) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def time_aggregate(name, keys, counts):
+    """aggregate_combine against its plain version on sorted (B, n) keys,
+    and torch.unique_consecutive + torch.segment_reduce over the flattened
+    keys (two calls; float64 data, since segment_reduce takes no integers;
+    rows are not kept apart) as a yardstick."""
+    import torch
+    from repro_torch.kernels.aggregate_combine import combine_blocks, combine_blocks_ref
+
+    got = combine_blocks(keys, counts)
+    want = combine_blocks_ref(keys, counts)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    flat, flat_counts = keys.reshape(-1), counts.reshape(-1).double()
+
+    def two_calls():
+        _, lengths = torch.unique_consecutive(flat, return_counts=True)
+        return torch.segment_reduce(flat_counts, "sum", lengths=lengths)
+
+    live = int((keys != torch.iinfo(torch.int64).max).sum())
+    per_entry = 8 + counts.element_size() + 1 + 8  # key and count read, head and sum written
+    count_type = str(counts.dtype).replace("torch.", "")
+    return {
+        "shape": name, "dims": list(keys.shape), "dtype": f"int64 keys, {count_type} counts",
+        "live_keys": live, "groups": int(got[0].sum()), "max_abs_err": err,
+        "ms": cuda_ms(lambda: combine_blocks(keys, counts)),
+        "plain_ms": cuda_ms(lambda: combine_blocks_ref(keys, counts)),
+        "bound_ms": keys.numel() * per_entry / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_live_keys": live * per_entry / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "two_calls_ms": cuda_ms(two_calls),
+    }
+
+
+def combine_inputs(pre, sentinel):
+    """The aggregate family's combiner inputs at the end of ingest, as a
+    major (K-way then 2-way merge) and a fold increment build them:
+    sorted (T, N) keys and their int64 counts."""
+    import torch
+    from repro_torch.kernels.merge_runs import merge_pair_device, merge_sorted_device
+
+    rk, rc, rn = pre["ag_run_k"], pre["ag_run_c"], pre["ag_run_n"]
+    bk, bc, bn = pre["ag_base_k"], pre["ag_base_c"], pre["ag_base_n"]
+    t, k, m = rk.shape
+    within = torch.arange(m, device=rk.device)[None, None, :] < rn[..., None]
+    mk, mc = merge_sorted_device(torch.where(within, rk, sentinel),
+                                 torch.where(within[..., None], rc, 0), rn)
+    two_k, two_c = merge_pair_device(bk, bc, bn, mk, mc, rn.sum(dim=1, dtype=torch.int32))
+    slot = (pre["n_runs"] - 1).clamp(min=0).long()
+    tix = torch.arange(t, device=rk.device)
+    top_n = rn[tix, slot]
+    top = torch.arange(m, device=rk.device)[None, :] < top_n[:, None]
+    fold_k, fold_c = merge_pair_device(bk, bc, bn, torch.where(top, rk[tix, slot], sentinel),
+                                       torch.where(top[..., None], rc[tix, slot], 0), top_n)
+    return {"ag two_way": (two_k, two_c[..., 0].contiguous()),
+            "ag fold": (fold_k, fold_c[..., 0].contiguous())}
+
+
+def aggregate_step_breakdown(store, d, program, dev):
+    """Where the device aggregate step's time goes, for spec (a) on the tier
+    A filter over the whole range: the step over every level, and on the
+    base level alone its filter, its group ids and one of its scatters."""
+    import torch
+    from repro_torch.core import resolve_grouping
+    from repro_torch.core.dist_query import (
+        _group_ids, _in_range, _segment_aggregate, aggregate_step)
+    from repro_torch.kernels.filter_scan import filter_scan
+
+    g = resolve_grouping(store, agg_specs()["a count/status/hour"], 0, T_SPAN)
+    vt = torch.ones(1, dtype=torch.int32, device=dev)
+    probe = torch.tensor([0, 1 << 30], dtype=torch.int32, device=dev)
+    hit = filter_scan(d.cols, *program) & _in_range(d.rev_ts, probe, d.counts)
+    gid = _group_ids(d.rev_ts, d.cols, g)
+    ones = hit.reshape(-1).to(torch.int64)
+    return {
+        "groups": g.size, "base_rows": int(hit.numel()),
+        "step_ms": cuda_ms(lambda: aggregate_step(d, program, vt, g, 0, 1 << 30)),
+        "base_filter_ms": cuda_ms(lambda: filter_scan(d.cols, *program)),
+        "base_segment_aggregate_ms": cuda_ms(lambda: _segment_aggregate(d.rev_ts, d.cols, hit,
+                                                                        g, vt)),
+        "base_group_ids_ms": cuda_ms(lambda: _group_ids(d.rev_ts, d.cols, g)),
+        "base_index_add_ms": cuda_ms(
+            lambda: torch.zeros(g.size, dtype=torch.int64, device=dev).index_add_(0, gid, ones)),
+    }
+
+
+def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts):
+    """Path 3: the host combine_scan scheme and the device aggregate_range
+    for every spec on the tier queries and A AND 404. Returns the per-query
+    rows and the (lo, hi) of the largest tier-A batch of spec (b)."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core import Eq, And, QueryProcessor, QueryStats
+    from repro_torch.core import merge_aggregate_blocks, resolve_grouping
+
+    qp = QueryProcessor(store, device=dev)
+    queries = [(tier, Eq("domain", dom), domain_counts[dom]) for tier, dom in tiers.items()]
+    queries.append(("A and 404", And(Eq("domain", tiers["A"]), Eq("status", "404")),
+                    pair_counts[(tiers["A"], "404")]))
+    rows, largest_a = [], None
+    for sname, spec in agg_specs().items():
+        grouping = resolve_grouping(store, spec, 0, T_SPAN)
+        for label, tree, want in queries:
+            stats = QueryStats()
+            t0 = time.perf_counter()
+            it = qp.run_scheme("combine_scan", 0, T_SPAN, tree, aggregate=spec, stats=stats,
+                               _grouping=grouping)
+            blocks = [next(it)]
+            ttfr = time.perf_counter() - t0
+            blocks.extend(it)
+            total_s = time.perf_counter() - t0
+            host = merge_aggregate_blocks(grouping, blocks)
+            if label == "A" and sname.startswith("b"):
+                largest_a = max(stats.batch_log, key=lambda b: b[3])[:2]
+            row = {"query": label, "spec": sname, "want": want, "groups": host.n_groups,
+                   "host": {"ttfr_s": ttfr, "total_s": total_s, "batches": stats.batches,
+                            "rows": stats.rows}}
+            check(int(host.counts.sum()) == want == stats.rows,
+                  f"path 3 {label} {sname}: host counts sum to {host.counts.sum()}, "
+                  f"events hold {want}")
+            for use_index in (False, True):
+                obs.clear()
+                st = QueryStats()
+                t0 = time.perf_counter()
+                res = dq.aggregate_range(spec, tree, 0, T_SPAN, use_index=use_index, stats=st)
+                secs = time.perf_counter() - t0
+                spans = summarize_spans(obs.get_tracer().records)
+                key = "device_index_plan" if use_index else "device_scan_plan"
+                row[key] = {
+                    "s": secs, "plan": st.plan.describe(), "mode": st.plan.mode,
+                    "index_keys_scanned": st.index_keys_scanned,
+                    "fell_back": st.plan.mode == "index" and "query.aggregate_scan" in spans,
+                    "step_s": sum(v["s"] for k, v in spans.items()
+                                  if k.startswith("query.aggregate_")),
+                }
+                check(same_aggregates(res, host) and res.counts.dtype == np.int64,
+                      f"path 3 {label} {sname}: device ({key}) differs from the host")
+            log("aggregate", json.dumps(row))
+            rows.append(row)
+    return rows, largest_a
+
+
 def summarize_spans(records):
     out = {}
     for r in records:
@@ -451,13 +689,16 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     from repro_torch.core.planner import plan_query
     from repro_torch.core.schema import web_proxy_schema
     from repro_torch.core.store import EventStore
+    from repro_torch.kernels.aggregate_combine import ops as aggregate_ops
+    from repro_torch.kernels.combine_scan import ops as combine_ops
     from repro_torch.kernels.filter_scan import ops as filter_ops
     from repro_torch.kernels.merge_intersect import ops as intersect_ops
     from repro_torch.kernels.merge_runs import ops as merge_ops
     from repro_torch.pipeline.sources import SyntheticWebProxySource, parse_web_proxy_lines
 
     kernel_ops = {"merge_runs": merge_ops, "filter_scan": filter_ops,
-                  "merge_intersect": intersect_ops}
+                  "merge_intersect": intersect_ops, "combine_scan": combine_ops,
+                  "aggregate_combine": aggregate_ops}
 
     def zero_launches():
         for ops in kernel_ops.values():
@@ -469,7 +710,18 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     report = {}
     events, chunk = size["events"], size["chunk"]
     source = SyntheticWebProxySource(seed=seed)
-    store = EventStore(web_proxy_schema())  # schema and dictionaries for the writer
+    # Schema and dictionaries for the writer; path 3 fills its tablets with
+    # the events as the writer encoded them (kept here, not encoded twice).
+    store = EventStore(web_proxy_schema())
+    encoded = []
+    encode = store.encode_events
+
+    def encode_and_keep(ts, values):
+        cols = encode(ts, values)
+        encoded.append((np.asarray(ts), cols))
+        return cols
+
+    store.encode_events = encode_and_keep
     plane = DistIngestPlane.for_store(
         store, capacity=size["capacity"], n_tablets=size["tablets"], mem_rows=size["mem_rows"],
         max_runs=size["max_runs"], append_rows=1024, device=dev)
@@ -504,6 +756,10 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     torch.cuda.synchronize(dev)
     drain_s = time.perf_counter() - t0
     ingest_spans = summarize_spans(obs.get_tracer().records)
+    # One aggregate-family combine per major and per fold increment.
+    combines = ingest_spans.get("ingest.major", {}).get("n", 0) + sum(
+        1 for r in obs.get_tracer().records
+        if r["name"] == "ingest.fold_increment" and r["args"].get("kind") == "fold")
     obs.clear()
     tel = plane.telemetry()
     check(int(tel["rows"].sum()) == events, f"plane rows {tel['rows'].sum()} != {events}")
@@ -540,8 +796,12 @@ def run_main_path(seed, dev, size=MAIN_PATH):
             queries.append(run_query(dq, scheme, eq[tier], tier, domain_counts[tiers[tier]]))
     launches_1 = read_launches()
     log("launches", "path 1 (ingest and scans): " + json.dumps(launches_1))
-    check(launches_1["merge_runs"] > 0 and launches_1["filter_scan"] > 0,
+    check(launches_1["merge_runs"] > 0 and launches_1["filter_scan"] > 0
+          and launches_1["aggregate_combine"] > 0,
           f"a kernel of path 1 never launched: {launches_1}")
+    check(launches_1["aggregate_combine"] == combines,
+          f"aggregate_combine launched {launches_1['aggregate_combine']} times on path 1, "
+          f"for {combines} majors and fold increments")
 
     # Path 2: density planning and the index schemes on the same snapshot.
     zero_launches()
@@ -558,12 +818,32 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         queries.append(run_query(dq, scheme, b_or_c, "B or C",
                                  domain_counts[tiers["B"]] + domain_counts[tiers["C"]]))
     launches_2 = read_launches()
-    obs.disable()
     log("launches", "path 2 (density and index): " + json.dumps(launches_2))
     check(launches_2["merge_intersect"] > 0 and launches_2["filter_scan"] > 0,
           f"a kernel of path 2 never launched: {launches_2}")
-    launches = {k: launches_1[k] + launches_2[k] for k in launches_1}
-    report["launches"] = {"total": launches, "path_1": launches_1, "path_2": launches_2}
+
+    # Path 3: scan-time aggregation, host and device, on the same snapshot.
+    store.encode_events = encode
+    t0 = time.perf_counter()
+    for ts, cols in encoded:
+        store.ingest_encoded(ts, cols)
+    store.flush_all()
+    store.compact_all()
+    host_setup_s = time.perf_counter() - t0
+    encoded.clear()
+    log("aggregate", f"host EventStore(n_shards={store.n_shards}) filled with {store.total_rows} "
+        f"events, flushed and compacted in {host_setup_s:.3f} s (set-up, untimed)")
+    zero_launches()
+    agg_rows, largest_a = run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts)
+    launches_3 = read_launches()
+    obs.disable()
+    log("launches", "path 3 (aggregation): " + json.dumps(launches_3))
+    check(launches_3["combine_scan"] > 0 and launches_3["filter_scan"] > 0
+          and launches_3["merge_intersect"] > 0, f"a kernel of path 3 never launched: {launches_3}")
+    report["aggregation"] = {"host_setup_s": host_setup_s, "queries": agg_rows}
+    launches = {k: launches_1[k] + launches_2[k] + launches_3[k] for k in launches_1}
+    report["launches"] = {"total": launches, "path_1": launches_1, "path_2": launches_2,
+                          "path_3": launches_3}
 
     d = dq.dist
     densities = {}
@@ -643,7 +923,52 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         intersect_rows.append(row)
         log("kernel", json.dumps({"name": "merge_intersect", **row}))
     report["and_b_batch"] = {"lo": lo_t, "hi": hi_t, "plan": plan.describe()}
-    for rows in (merge_rows, filter_rows, intersect_rows):
+
+    # combine_scan on the largest tier-A batch of path 3 (spec b), sorted by
+    # group as the CombinerIterator sorts it, and on a synthetic straddle.
+    from repro_torch.core import keypack as kp, resolve_grouping
+    from repro_torch.core.scan import scan_events
+
+    spec_b = agg_specs()["b sum bytes_in/method/hour"]
+    lo_t, hi_t = largest_a
+    blocks = list(scan_events(store, int(lo_t), int(hi_t)))
+    keys = np.concatenate([b.keys for b in blocks])
+    cols = np.concatenate([b.cols for b in blocks])
+    grouping = resolve_grouping(store, spec_b, 0, T_SPAN)
+    gids = grouping.group_ids(kp.unrev_ts(kp.unpack_event_key(keys)[1]), cols)
+    order = np.argsort(gids, kind="stable")
+    batch = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (gids[order], grouping.values(cols)[order], cols[order])]
+    combine_rows = [time_combine("tier-A batch", *batch, program, op) for op in OPS]
+    n_syn = 1 << 20
+    syn_gids = np.sort(rng.integers(0, 4000, n_syn))
+    syn_gids[n_syn // 2:] = 4000  # one group over the last 1024 tiles of 512 rows
+    syn_cols = np.zeros((n_syn, store.schema.n_fields), np.int32)
+    sfid = store.schema.field_id("status")
+    syn_cols[:, sfid] = store.dictionaries["status"].lookup("404")
+    syn_cols[::2, sfid] = store.dictionaries["status"].lookup("200")
+    syn = [torch.from_numpy(x).to(dev) for x in
+           (syn_gids.astype(np.int64), rng.integers(0, 1 << 20, n_syn).astype(np.int32), syn_cols)]
+    syn_prog = program_tensors(store, Eq("status", "200"), dev)
+    combine_rows += [time_combine("synthetic straddle", *syn, syn_prog, op) for op in OPS]
+    for row in combine_rows:
+        log("kernel", json.dumps({"name": "combine_scan", **row}))
+    report["tier_a_batch"] = {"lo": lo_t, "hi": hi_t, "rows": int(len(keys))}
+
+    # aggregate_combine at the aggregate family's combiner inputs, and an
+    # int32 combine_sorted_counts case.
+    aggregate_rows = []
+    for name, (k, c) in combine_inputs(pre, KEY_PAD64).items():
+        aggregate_rows.append(time_aggregate(name, k, c))
+    ck = torch.from_numpy(np.sort(rng.integers(0, 1 << 20, 1 << 22)))[None].to(dev)
+    cc = torch.from_numpy(rng.integers(1, 100, (1, 1 << 22)).astype(np.int32)).to(dev)
+    aggregate_rows.append(time_aggregate("combine_sorted_counts int32", ck, cc))
+    for row in aggregate_rows:
+        log("kernel", json.dumps({"name": "aggregate_combine", **row}))
+    report["aggregate_step"] = aggregate_step_breakdown(store, d, program, dev)
+    log("aggregate", "device aggregate step on the base (spec a, tier A): "
+        + json.dumps(report["aggregate_step"]))
+    for rows in (merge_rows, filter_rows, intersect_rows, combine_rows, aggregate_rows):
         for row in rows:
             check(row["max_abs_err"] == 0, f"kernel disagrees with its plain version: {row}")
 
@@ -662,6 +987,10 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         summary("filter_scan", "cuda", FILTER_SRC, FILTER_REPLACES, filter_rows, "base (T,R,F)"),
         summary("merge_intersect", "cuda", INTERSECT_SRC, INTERSECT_REPLACES, intersect_rows,
                 "AND-B batch (T,S) int32"),
+        summary("combine_scan", "cuda", COMBINE_SRC, COMBINE_REPLACES, combine_rows,
+                "tier-A batch sum"),
+        summary("aggregate_combine", "cuda", AGGREGATE_SRC, AGGREGATE_REPLACES, aggregate_rows,
+                "ag two_way"),
     ]
     report["kernels"] = kernels
     return report

@@ -1,5 +1,5 @@
 """Adaptive query batching — paper §III-A, Algorithms 1 and 2; a copy of
-the reference's core/batching.py cut to what the scan path calls.
+the reference's core/batching.py cut to what the query paths call.
 
 After each batch the observed (runtime T_i, result count r_i) adapt the
 next one:
@@ -15,6 +15,7 @@ On r_i == 0 k is kept and b grows geometrically by c.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
@@ -97,3 +98,23 @@ class AdaptiveBatcher:
         self._b = max(b_next, self.eps)
         self._k = max(k_next, 1.0)
         self._i += 1
+
+
+class HitRateTracker:
+    """Per-table historical hit rate r/b that seeds b_0 (paper: 'b_0
+    pre-computed for the particular Accumulo table being queried based on
+    the typical hit-rates of previous queries on that table'). Thread-safe:
+    concurrent observe() calls must not tear the EWMA update."""
+
+    def __init__(self, default_rate: float = 1.0, alpha: float = 0.2):
+        self._rate = default_rate  # rows per time unit
+        self._alpha = alpha
+        self._lock = threading.Lock()
+
+    def observe(self, rows: int, b: float) -> None:
+        if b > 0:
+            with self._lock:
+                self._rate = (1 - self._alpha) * self._rate + self._alpha * (rows / b)
+
+    def initial_b(self, k0: float = DEFAULT_K0) -> float:
+        return max(k0 / max(self._rate, 1e-9), 1.0)

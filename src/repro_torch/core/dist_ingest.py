@@ -12,7 +12,9 @@ The LSM lifecycle runs as PyTorch steps over that state:
     minor    per-tablet memtable sort into the next sorted-run slot
     major    K-way merge of the runs, then a 2-way merge with the base,
              both through the merge_runs rank kernel — blocking the writer
-             that tripped it (the paper's backpressure)
+             that tripped it (the paper's backpressure); the aggregate
+             family's duplicate keys then sum through the
+             aggregate_combine kernel
     fold     one increment of major compaction: the top run slot folds
              into the base (compact_step)
     seal     publish(): a fill-bounded sorted copy of every family's
@@ -47,6 +49,7 @@ from .device import resolve_device
 from .dist_query import DistStore
 from .ingest import BatchWriter
 from .store import DEFAULT_AGG_BUCKET_SECONDS
+from ..kernels.aggregate_combine import combine_blocks
 from ..kernels.common import pow2
 from ..kernels.merge_runs import merge_pair_device, merge_sorted_device
 from ..obs import MetricsRegistry, OwnedLock, span
@@ -84,9 +87,14 @@ def _combine_dup_keys(keys: torch.Tensor, vals: Optional[torch.Tensor], sentinel
     """Per tablet, sum the payloads of equal adjacent keys of a sorted
     (sentinel-tailed) (T, N) sequence and compact the unique keys to the
     front. Returns (ukeys, int64 sums or None when vals is None, int32
-    n_unique (T,))."""
-    is_head = torch.ones_like(keys, dtype=torch.bool)
-    is_head[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    n_unique (T,)). With values, the head flags and each key's sum come
+    from the aggregate_combine kernel (the combiner-on-compaction, one
+    launch over all tablets); the sentinel tail sums as one segment."""
+    if vals is None:
+        is_head = torch.ones_like(keys, dtype=torch.bool)
+        is_head[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    else:
+        is_head, head_sums = combine_blocks(keys, vals)
     seg = torch.cumsum(is_head, dim=1) - 1
     n_unique = (is_head & (keys != sentinel)).sum(dim=1, dtype=torch.int32)
     # Every member of a segment carries the same key, so the duplicate
@@ -94,8 +102,9 @@ def _combine_dup_keys(keys: torch.Tensor, vals: Optional[torch.Tensor], sentinel
     ukeys = torch.full_like(keys, sentinel).scatter_(1, seg, keys)
     sums = None
     if vals is not None:
+        # Only heads hold a nonzero sum: one exact add per segment.
         sums = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
-        sums.scatter_add_(1, seg, vals.to(torch.int64))
+        sums.scatter_add_(1, seg, head_sums)
     return ukeys, sums, n_unique
 
 

@@ -32,6 +32,12 @@ reruns as the exact scan step. The planner's densities come from the
 aggregate family (density_step): per level a searchsorted and a masked
 sum, summed over T.
 
+Scan-time aggregation (aggregate_range) reuses both: the aggregate step
+filters every level in range and reduces the matching rows into a dense
+per-group array (mixed-radix group ids, plain scatter reductions), and
+for index-mode plans the index aggregate step reduces only the gathered
+candidate rows, falling back to the aggregate step on truncation.
+
 Every read searches ALL LSM levels of the snapshot — the base, the K
 sorted-run slabs and the sealed memtable — so publish() never folds.
 """
@@ -48,9 +54,12 @@ from . import keypack
 from .batching import AdaptiveBatcher
 from .device import resolve_device
 from .filter import compile_tree
+from .iterators import AggregateResult, AggregateSpec, ResolvedGrouping, resolve_grouping
 from .planner import QueryPlan, plan_query
+from .query import QueryStats
 from .store import EventStore
-from ..kernels.filter_scan import filter_scan, pad_program
+from ..kernels.combine_scan.ref import IDENTITY
+from ..kernels.filter_scan import filter_scan, program_tensors
 from ..kernels.merge_intersect import member_mask
 from ..obs import span
 
@@ -332,6 +341,19 @@ def _expand_levels(cand, live, d: DistStore, max_rows: int):
     return [_expand_level(cand, live, rev, cols, nn, max_rows) for rev, cols, nn in d.ev_levels()]
 
 
+def _gather_candidates(d: DistStore, lo, hi, combine: str, max_postings: int, max_rows: int):
+    """The index path's candidate gather (paper Fig 2 up to the row fetch):
+    posting slabs per condition, the AND/OR combine, and the candidate
+    rows of every event level. Returns the per-level _expand_level
+    outputs and the int32 (T,) truncation and candidate-row counts."""
+    slabs, post_over = _posting_slabs(d, lo, hi, max_postings)
+    cand, live = _combine_postings(slabs, combine)
+    levels = _expand_levels(cand, live, d, max_rows)
+    truncated = post_over + _sum_levels(*(lv[4] for lv in levels))
+    candidates = _sum_levels(*(lv[3] for lv in levels))
+    return levels, truncated, candidates
+
+
 def index_step(d: DistStore, program, lo, hi, combine: str, top_k: int = 128,
                max_postings: int = 2048, max_rows: int = 4096):
     """One index-mode step over every tablet and level — the port of the
@@ -342,32 +364,111 @@ def index_step(d: DistStore, program, lo, hi, combine: str, top_k: int = 128,
     wrong result. Returns int32 scalars (count, truncated, candidates)
     and the per-tablet top-k (ts, cols) as scan_step does; truncated > 0
     means a slab overflowed and the count is a lower bound."""
-    slabs, post_over = _posting_slabs(d, lo, hi, max_postings)
-    cand, live = _combine_postings(slabs, combine)
-    levels = _expand_levels(cand, live, d, max_rows)
+    levels, truncated, candidates = _gather_candidates(d, lo, hi, combine, max_postings,
+                                                       max_rows)
     parts = [_filter_topk(r_rev, r_cols, valid, program, top_k)
              for r_rev, r_cols, valid, _, _ in levels]
     count, out_ts, out_cols = _merged_slates(parts, top_k)
-    truncated = post_over + _sum_levels(*(lv[4] for lv in levels))
-    candidates = _sum_levels(*(lv[3] for lv in levels))
     return (count.sum(dtype=torch.int32), out_ts, out_cols,
             truncated.sum(dtype=torch.int32), candidates.sum(dtype=torch.int32))
 
 
+# -------------------------------------------------------- aggregation
+def _group_ids(r_rev, r_cols, grouping: ResolvedGrouping) -> torch.Tensor:
+    """Flat int64 group ids of a slab's rows: int32 mixed-radix codes plus
+    the floored time bucket, clamped into [0, n_groups) (junk rows clamp
+    too; callers give them the identity)."""
+    gid = torch.zeros(r_rev.shape, dtype=torch.int32, device=r_rev.device)
+    for fid, stride in zip(grouping.fids, grouping.strides):
+        gid = gid + r_cols[..., fid] * stride
+    if grouping.spec.time_bucket_s is not None:
+        ts = keypack.TS_MAX - r_rev
+        gid = gid + torch.div(ts, grouping.spec.time_bucket_s, rounding_mode="floor") \
+            - grouping.bucket_lo
+    return gid.clamp(0, grouping.size - 1).reshape(-1).long()
+
+
+def _segment_aggregate(r_rev, r_cols, hit, grouping: ResolvedGrouping, value_table):
+    """The CombinerIterator body on the device: the matching rows of one
+    level's slab, batched over its leading dims, reduced into the dense
+    group-id space. r_rev (..., R) int32, r_cols (..., R, F), hit (..., R)
+    the matching rows; value_table int32 (codes -> numeric values, unread
+    for count). Returns (aggs, int64 cnts), both (n_groups,): int64 sums
+    for count and sum, int32 min or max."""
+    op = grouping.spec.op
+    n_groups = grouping.size
+    dev = r_rev.device
+    gid = _group_ids(r_rev, r_cols, grouping)
+    hit = hit.reshape(-1)
+    if grouping.value_fid is not None:
+        codes = r_cols[..., grouping.value_fid].clamp(0, value_table.shape[0] - 1)
+        val = value_table[codes.long()].reshape(-1)
+    else:
+        val = torch.ones(hit.shape, dtype=torch.int32, device=dev)
+    ident = IDENTITY[op]
+    if op in ("count", "sum"):
+        # Sums accumulate in int64, as the host iterator stack's do.
+        aggs = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+        aggs.index_add_(0, gid, torch.where(hit, val.to(torch.int64), 0))
+    else:
+        aggs = torch.full((n_groups,), ident, dtype=torch.int32, device=dev)
+        aggs.scatter_reduce_(0, gid, torch.where(hit, val, ident),
+                             "amin" if op == "min" else "amax")
+    cnts = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+    cnts.index_add_(0, gid, hit.to(torch.int64))
+    return aggs, cnts
+
+
+def _combine_level_aggs(parts, op: str):
+    """Merge per-level (aggs, cnts) partials: rows are disjoint across
+    levels, so sums and counts add and min/max fold elementwise."""
+    aggs, cnts = parts[0]
+    for a, c in parts[1:]:
+        if op in ("count", "sum"):
+            aggs = aggs + a
+        elif op == "min":
+            aggs = torch.minimum(aggs, a)
+        else:
+            aggs = torch.maximum(aggs, a)
+        cnts = cnts + c
+    return aggs, cnts
+
+
+def aggregate_step(d: DistStore, program, value_table, grouping: ResolvedGrouping,
+                   rts_lo: int, rts_hi: int):
+    """Scan-time aggregation over every tablet and LSM level — the port of
+    the reference's run-aware build_aggregate_step: per level the rev_ts
+    range [rts_lo, rts_hi) and the filter program (filter_scan) select the
+    rows, and _segment_aggregate reduces them over the tablets and run
+    slots in one scatter (the reference's per-tablet segments and psum,
+    pmin or pmax over the mesh). Returns the dense (n_groups,) aggs and
+    int64 cnts."""
+    probe = torch.tensor([rts_lo, rts_hi], dtype=torch.int32).to(d.device)
+    parts = [_segment_aggregate(rev, cols, filter_scan(cols, *program)
+                                & _in_range(rev, probe, live), grouping, value_table)
+             for rev, cols, live in d.ev_levels()]
+    return _combine_level_aggs(parts, grouping.spec.op)
+
+
+def index_aggregate_step(d: DistStore, program, value_table, grouping: ResolvedGrouping,
+                         lo, hi, combine: str, max_postings: int = 2048,
+                         max_rows: int = 4096):
+    """Index-driven aggregation — the port of build_index_aggregate_step:
+    index_step's candidate gather feeding _segment_aggregate, so a
+    selective aggregate reduces only the candidate rows. The FULL tree
+    re-checks every candidate row. Returns the dense (n_groups,) aggs and
+    int64 cnts, and the int32 scalars truncated (> 0: a slab overflowed,
+    the caller reruns the exact aggregate step) and candidates."""
+    levels, truncated, candidates = _gather_candidates(d, lo, hi, combine, max_postings,
+                                                       max_rows)
+    parts = [_segment_aggregate(r_rev, r_cols, filter_scan(r_cols, *program) & valid,
+                                grouping, value_table)
+             for r_rev, r_cols, valid, _, _ in levels]
+    aggs, cnts = _combine_level_aggs(parts, grouping.spec.op)
+    return aggs, cnts, truncated.sum(dtype=torch.int32), candidates.sum(dtype=torch.int32)
+
+
 # ---------------------------------------------------------- execution
-@dataclass
-class QueryStats:
-    """What a query run records: its plan, batches, rows, the index
-    entries its index steps expanded, and one (lo, hi, seconds, rows)
-    entry per batch."""
-
-    batches: int = 0
-    rows: int = 0
-    index_keys_scanned: int = 0
-    plan: Optional[QueryPlan] = None
-    batch_log: List[Tuple[float, float, float, int]] = field(default_factory=list)
-
-
 @dataclass
 class DistBatch:
     """One batch's result: the exact global matching-row count plus the
@@ -463,12 +564,13 @@ class QueryRun:
 
 
 class DistQueryProcessor:
-    """The four schemes of §IV-B over a live DistIngestPlane: every query
-    syncs to the plane's latest published snapshot, so rows written
-    through DistBatchWriter are visible with no host round trip. The
-    planner reads its densities from the snapshot's aggregate tablets
-    (agg_count), and index-mode plans run index_step per batch; a plane
-    without indexed fields answers every scheme by scanning.
+    """The four schemes of §IV-B and scan-time aggregation
+    (aggregate_range) over a live DistIngestPlane: every query syncs to
+    the plane's latest published snapshot, so rows written through
+    DistBatchWriter are visible with no host round trip. The planner reads
+    its densities from the snapshot's aggregate tablets (agg_count), and
+    index-mode plans run index_step per batch; a plane without indexed
+    fields answers every scheme by scanning.
 
     ``device`` must be the plane's device (default "cuda"; the CPU tests
     pass "cpu"). ``w`` is the planner's threshold; ``index_postings`` and
@@ -536,10 +638,7 @@ class DistQueryProcessor:
     def _program(self, tree, device: torch.device):
         """The tree's padded program as four int32 tensors on the device,
         copied in one transfer."""
-        opc, a0, a1, cs = pad_program(compile_tree(self.store, tree))
-        flat = torch.from_numpy(np.concatenate([opc, a0, a1, cs.ravel()])).to(device)
-        p = len(opc)
-        return flat[:p], flat[p:2 * p], flat[2 * p:3 * p], flat[3 * p:].view(cs.shape)
+        return program_tensors(compile_tree(self.store, tree), device)
 
     def scan_range(self, tree, t0: int, t1: int, dist: Optional[DistStore] = None
                    ) -> Tuple[int, np.ndarray, np.ndarray]:
@@ -635,3 +734,63 @@ class DistQueryProcessor:
             "batched_index": dict(use_index=True, batched=True),
         }[scheme]
         return self.execute(tree, t_start, t_stop, stats=stats, **flags)
+
+    # ------------------------------------------------------- aggregation
+    @staticmethod
+    def _materialize_agg(grouping: ResolvedGrouping, aggs, cnts) -> AggregateResult:
+        """Host epilogue: only groups with at least one matching row exist.
+        Values come back int64, counts int64 (the reference's dtypes)."""
+        aggs = aggs.cpu().numpy().astype(np.int64)
+        cnts = cnts.cpu().numpy()
+        live = cnts > 0
+        return AggregateResult(grouping, np.flatnonzero(live).astype(np.int64), aggs[live],
+                               cnts[live])
+
+    def aggregate_range(self, spec: AggregateSpec, tree, t0: int, t1: int,
+                        use_index: bool = True, stats: Optional[QueryStats] = None,
+                        dist: Optional[DistStore] = None) -> AggregateResult:
+        """Scan-time aggregation over every tablet and level of one snapshot
+        — the device form of QueryProcessor.aggregate, planner driven:
+        index-mode plans aggregate only the gathered index candidates
+        (falling back to the scan aggregation when a slab overflows),
+        provably empty plans skip the device, and everything else runs the
+        aggregate step. Returns the merged per-group result for ts in
+        [t0, t1]. ``dist`` pins a snapshot; by default the plane's latest."""
+        d = dist if dist is not None else self._sync()
+        grouping = resolve_grouping(self.store, spec, t0, t1)
+        source = _PinnedSource(self, d) if d.has_index else self.store
+        plan = plan_query(source, tree, t0, t1, w=self.w, use_index=use_index and d.has_index)
+        if stats is not None:
+            stats.plan = plan
+        if plan.mode == "empty":
+            e = np.empty(0, np.int64)
+            return AggregateResult(grouping, e, e.copy(), e.copy())
+        aggs, cnts = self._agg_range_on(d, plan, grouping, tree, t0, t1, stats)
+        return self._materialize_agg(grouping, aggs, cnts)
+
+    def _agg_range_on(self, d: DistStore, plan: QueryPlan, grouping: ResolvedGrouping,
+                      tree, t0: int, t1: int, stats: Optional[QueryStats] = None):
+        """One snapshot's aggregation as dense (aggs, cnts) device tensors:
+        the index aggregate step for index-mode plans, rerun as the exact
+        aggregate step when it truncated (a query.aggregate_scan span inside
+        an index-mode plan is such a fallback)."""
+        program = self._program(tree, d.device)
+        vt = grouping.value_table if grouping.value_table is not None else np.ones(1, np.int32)
+        value_table = torch.from_numpy(vt).to(d.device)
+        if plan.mode == "index" and d.has_index:
+            lo, hi = self._cond_ranges(plan, t0, t1)
+            ranges = torch.from_numpy(np.stack([lo, hi])).to(d.device)
+            with span("query.aggregate_index", cat="query") as sp:
+                aggs, cnts, truncated, cands = index_aggregate_step(
+                    d, program, value_table, grouping, ranges[0], ranges[1], plan.combine,
+                    self.index_postings, self.index_rows)
+                n_trunc, n_cands = (int(x) for x in sp.fence(torch.stack([truncated, cands])).cpu())
+            if stats is not None:
+                stats.index_keys_scanned += n_cands
+            if not n_trunc:
+                return aggs, cnts
+        with span("query.aggregate_scan", cat="query") as sp:
+            aggs, cnts = aggregate_step(d, program, value_table, grouping,
+                                        int(keypack.rev_ts(t1)), int(keypack.rev_ts(t0)) + 1)
+            sp.fence(cnts)
+        return aggs, cnts

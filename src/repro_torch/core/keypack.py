@@ -48,6 +48,15 @@ def pack_event_key(shard, rts, h):
     return (shard << _EV_SHARD_SHIFT) | (rts << _EV_TS_SHIFT) | h
 
 
+def unpack_event_key(key):
+    """int64 event keys -> (shard, rev_ts, hash) int64 arrays."""
+    key = np.asarray(key, dtype=np.int64)
+    shard = key >> _EV_SHARD_SHIFT
+    rts = (key >> _EV_TS_SHIFT) & TS_MAX
+    h = key & HASH_MAX
+    return shard, rts, h
+
+
 def event_key_range(shard, t_start, t_stop):
     """[lo, hi) of packed event keys for ts in [t_start, t_stop] within
     one shard (reversed timestamps: t_stop is the low end)."""

@@ -46,6 +46,12 @@ class FieldDictionary:
         """Code for a value if it was ever ingested, else None."""
         return self._fwd.get(value)
 
+    def decode(self, code: int) -> str:
+        return self._rev[int(code)]
+
+    def __len__(self):
+        return len(self._rev)
+
 
 @dataclass(frozen=True)
 class FieldSpec:

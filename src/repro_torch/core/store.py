@@ -32,6 +32,13 @@ def split_key64(key: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return hi, lo
 
 
+def join_key64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """(hi, lo) int32 lanes -> int64 (the inverse of split_key64)."""
+    hi = np.asarray(hi).astype(np.int64)
+    lo = np.asarray(lo).astype(np.int64) & 0xFFFFFFFF
+    return (hi << 32) | lo
+
+
 class EventStore:
     """One data source's three tables, sharded n_shards ways."""
 
@@ -144,3 +151,16 @@ class EventStore:
         lo = keypack.pack_agg_key(fid, code, b0)
         hi = keypack.pack_agg_key(fid, code, b1) + 1
         return self.agg_tablet.count_range(int(lo), int(hi))
+
+    def _tablets(self) -> List[Tablet]:
+        return self.event_tablets + self.index_tablets + [self.agg_tablet]
+
+    def flush_all(self) -> None:
+        """Flush every tablet's memtable to a sorted run."""
+        for t in self._tablets():
+            t.flush()
+
+    def compact_all(self) -> None:
+        """Flush, then major-compact every tablet to one run."""
+        for t in self._tablets():
+            t.compact()

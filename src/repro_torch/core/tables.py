@@ -44,6 +44,10 @@ class SortedRun:
     keys: np.ndarray  # int64 [n], ascending
     cols: np.ndarray  # [n, width] payload columns
 
+    @property
+    def n(self) -> int:
+        return int(self.keys.shape[0])
+
     def range_slice(self, lo: int, hi: int) -> Tuple[int, int]:
         """Row span [a, b) with lo <= key < hi."""
         a = int(np.searchsorted(self.keys, lo, side="left"))
@@ -100,6 +104,25 @@ class Tablet:
         k, c = merge_sorted_runs([(r.keys, r.cols) for r in self.runs])
         self.runs = [SortedRun(k, c)]
         self.major_compactions += 1
+
+    def flush(self) -> None:
+        """Force the memtable to a run (used at the end of ingest)."""
+        with self.lock:
+            if self._mem_rows:
+                self._minor_compact()
+
+    def compact(self) -> None:
+        """Flush, then merge every run into one."""
+        with self.lock:
+            if self._mem_rows:
+                self._minor_compact()
+            if len(self.runs) > 1:
+                self._major_compact()
+
+    @property
+    def n_rows(self) -> int:
+        with self.lock:
+            return sum(r.n for r in self.runs) + self._mem_rows
 
     def snapshot_runs(self) -> List[SortedRun]:
         """Runs visible to a scan (flush-on-read)."""

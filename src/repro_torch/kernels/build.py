@@ -1,13 +1,14 @@
 """Build and load the CUDA kernels of this package.
 
 At first use, every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its
-own ``nvcc`` process (all started together), and the objects are linked
+own ``nvcc`` process (all started together; the shared ``csrc/*.cuh``
+headers are included by them), and the objects are linked
 into one shared library with a plain C interface under the checkout's
 ``build/`` directory. The library is loaded with ``ctypes``; every entry
 point takes ``c_void_p`` for pointers and the stream, and returns
 ``cudaGetLastError()`` as an int.
 
-The library's file name carries a hash of the sources, so an edited
+The library's file name carries a hash of the sources and headers, so an edited
 source is rebuilt and a stale library is never loaded. Nothing here runs
 at import time: the CPU tests import every module of the package.
 """
@@ -80,7 +81,7 @@ def load_library() -> ctypes.CDLL:
             return _lib
         sources = sorted(CSRC.glob("*.cu"))
         digest = hashlib.sha1()
-        for src in sources:
+        for src in sources + sorted(CSRC.glob("*.cuh")):
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
@@ -99,6 +100,17 @@ def load_library() -> ctypes.CDLL:
         for name in ("member_mask_i32", "member_mask_i64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, ll, ll, ll, vp, vp]
+            fn.restype = i
+        lib.combine_scan_tiles.argtypes = [vp, vp, vp, ll, i, vp, i, vp, i, i, i,
+                                           vp, vp, vp, vp, vp]
+        lib.combine_scan_tiles.restype = i
+        for name in ("aggregate_combine_i32", "aggregate_combine_i64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp]
+            fn.restype = i
+        for name in ("combine_scan_tile_rows", "aggregate_combine_tile_rows"):
+            fn = getattr(lib, name)
+            fn.argtypes = []
             fn.restype = i
         _lib = lib
         return lib

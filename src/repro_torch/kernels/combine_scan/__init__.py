@@ -1,0 +1,2 @@
+from .ops import OPS, combine_scan, combine_segments, trivial_program  # noqa: F401
+from .ref import combine_scan_ref  # noqa: F401

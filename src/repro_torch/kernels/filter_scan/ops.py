@@ -3,7 +3,7 @@
 ``filter_scan`` evaluates a compiled postfix predicate program over rows
 of dictionary codes: the CUDA kernel (csrc/filter_scan.cu) for CUDA
 tensors, its plain version (ref.py, over kernels/program_eval.py) for CPU
-tensors.
+tensors. ``filter_rows`` runs it on numpy rows for the host query path.
 """
 from __future__ import annotations
 
@@ -40,6 +40,15 @@ def pad_program(prog) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     cs = np.full((pow2(max(s, 1)), pow2(max(m, 1))), -1, np.int32)
     cs[:s, :m] = prog.codesets
     return opc, a0, a1, cs
+
+
+def program_tensors(prog, device) -> Tuple[torch.Tensor, ...]:
+    """A FilterProgram, padded, as the four int32 tensors (opcodes, arg0,
+    arg1, codesets) on ``device``, copied in one transfer."""
+    opc, a0, a1, cs = pad_program(prog)
+    flat = torch.from_numpy(np.concatenate([opc, a0, a1, cs.ravel()])).to(device)
+    p = len(opc)
+    return flat[:p], flat[p:2 * p], flat[2 * p:3 * p], flat[3 * p:].view(cs.shape)
 
 
 def filter_scan(cols, opcodes, arg0, arg1, codesets) -> torch.Tensor:
@@ -84,3 +93,14 @@ def filter_scan(cols, opcodes, arg0, arg1, codesets) -> torch.Tensor:
     global launches
     launches += 1
     return out.reshape(lead)
+
+
+def filter_rows(cols: np.ndarray, prog, device="cuda") -> np.ndarray:
+    """The host query path's filter: a FilterProgram over numpy (n, F)
+    int32 codes, evaluated by filter_scan on ``device``. Returns the numpy
+    bool (n,) mask."""
+    from ...core.device import resolve_device  # core imports this package
+
+    dev = resolve_device(device)
+    rows = torch.from_numpy(np.ascontiguousarray(cols, dtype=np.int32)).to(dev)
+    return filter_scan(rows, *program_tensors(prog, dev)).cpu().numpy()

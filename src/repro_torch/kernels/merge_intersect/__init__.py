@@ -1,2 +1,2 @@
-from .ops import member_mask  # noqa: F401
+from .ops import intersect_sorted, member_mask, union_sorted  # noqa: F401
 from .ref import member_mask_keys  # noqa: F401

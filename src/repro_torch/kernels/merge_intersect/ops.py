@@ -4,9 +4,14 @@
 ``b`` of the same row, batched over leading dims (the tablets): the CUDA
 kernel (csrc/merge_intersect.cu) for CUDA tensors, its plain version
 (ref.py) for CPU tensors. int32 and int64 keys are read as they are.
+
+The host query path's sorted-set ops sit on top: ``intersect_sorted``
+(the planner's AND, through ``member_mask`` on a given device) and
+``union_sorted`` (the OR, a plain sorted union).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..build import check, load_library
@@ -51,3 +56,28 @@ def member_mask(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global launches
     launches += 1
     return out
+
+
+def intersect_sorted(a: np.ndarray, b: np.ndarray, device="cuda") -> np.ndarray:
+    """A ∩ B of two sorted int64 key sets: the larger set probes the
+    smaller one through member_mask on ``device``. Returns the sorted
+    int64 intersection as numpy."""
+    a = np.asarray(a, dtype=np.int64)
+    b = np.asarray(b, dtype=np.int64)
+    if a.size == 0 or b.size == 0:
+        return np.empty(0, np.int64)
+    if a.size < b.size:
+        a, b = b, a
+    from ...core.device import resolve_device  # core imports this package
+
+    dev = resolve_device(device)
+    mask = member_mask(torch.from_numpy(a).to(dev)[None], torch.from_numpy(b).to(dev)[None])
+    return a[mask[0].cpu().numpy()]
+
+
+def union_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """A ∪ B of two sorted int64 key sets, sorted and unique (a plain
+    sorted union on the host)."""
+    a = np.asarray(a, dtype=np.int64)
+    b = np.asarray(b, dtype=np.int64)
+    return np.unique(np.concatenate([a, b]))

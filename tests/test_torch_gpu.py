@@ -27,6 +27,16 @@ from repro_torch.kernels.merge_runs import (
     ops as merge_ops,
 )
 from repro_torch.kernels.program_eval import program_eval_rows
+from repro_torch.kernels.aggregate_combine import (
+    combine_blocks,
+    combine_blocks_ref,
+    combine_sorted_counts,
+    ops as agg_ops,
+)
+from repro_torch.kernels.combine_scan import combine_scan, combine_scan_ref, combine_segments
+from repro_torch.kernels.combine_scan import ops as combine_ops
+from repro_torch.kernels.filter_scan import program_tensors
+from repro_torch.kernels.merge_intersect import intersect_sorted
 
 pytestmark = pytest.mark.gpu
 
@@ -230,3 +240,133 @@ def test_card_index_schemes_match_cpu_plane(cuda):
     before = intersect_ops.launches
     list(procs[1].run_scheme("index", 0, 3600, trees[1]))
     assert intersect_ops.launches > before
+
+
+def combine_inputs(rng, n, n_groups, store, long_group=False):
+    f = store.schema.n_fields
+    vals = {"domain": rng.choice(["a.com", "b.com", "c.com"], n).tolist(),
+            "status": rng.choice(["200", "404"], n).tolist()}
+    cols = store.encode_events(np.zeros(n), vals)
+    gids = np.sort(rng.integers(0, n_groups, n).astype(np.int64))
+    if long_group:
+        gids[n // 10:] = n_groups  # one group over most of the tiles
+    v = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+    assert cols.shape == (n, f)
+    return gids, v, cols
+
+
+@pytest.mark.parametrize("n,n_groups,long_group", [(1, 1, False), (511, 3, False),
+                                                   (513, 600, False), (5000, 40, True),
+                                                   (1 << 20, 1000, True)])
+def test_combine_scan_kernel_matches_plain_version(cuda, n, n_groups, long_group):
+    rng = np.random.default_rng(n)
+    store = EventStore(web_proxy_schema())
+    gids, v, cols = combine_inputs(rng, n, n_groups, store, long_group)
+    args = [torch.from_numpy(x).to(cuda) for x in (gids, v, cols)]
+    for tree in programs(store)[:4]:
+        program = program_tensors(pf.compile_tree(store, tree), cuda)
+        for op in ("count", "sum", "min", "max"):
+            before = combine_ops.launches
+            got = combine_segments(*args, *program, op)
+            torch.cuda.synchronize()
+            assert combine_ops.launches == before + 1
+            want = combine_scan_ref(*args, *program, op)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), (op, tree)
+
+
+def test_combine_scan_host_op_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(12)
+    store = EventStore(web_proxy_schema())
+    gids, v, cols = combine_inputs(rng, 70000, 5, store, long_group=True)
+    prog = pf.compile_tree(store, pf.Eq("status", "404"))
+    for op in ("count", "sum", "min", "max"):
+        got = combine_scan(gids, v, cols, prog, op=op, device=cuda)
+        want = combine_scan(gids, v, cols, prog, op=op, device="cpu")
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("shape,live", [((1, 1), [1]), ((3, 700), [0, 700, 513]),
+                                        ((4, 100000), [0, 5, 40000, 100000]),
+                                        ((64, 1769472), None)])
+def test_aggregate_combine_kernel_matches_plain_version(cuda, dtype, shape, live):
+    """Sorted keys with duplicates and sentinel tails over many tiles (the
+    last shape is the aggregate family's 2-way major)."""
+    rows, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    if live is None:
+        live = [n // 2] * rows
+    keys = torch.randint(0, max(n // 8, 1), shape, device=cuda, generator=gen).sort(dim=1).values
+    pos = torch.arange(n, device=cuda)[None, :]
+    keys = torch.where(pos < torch.tensor(live, device=cuda)[:, None], keys,
+                       torch.iinfo(torch.int64).max)
+    counts = torch.randint(-9, 100, shape, device=cuda, generator=gen).to(dtype)
+    before = agg_ops.launches
+    got = combine_blocks(keys, counts)
+    torch.cuda.synchronize()
+    assert agg_ops.launches == before + 1
+    want = combine_blocks_ref(keys, counts)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int64
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_combine_sorted_counts_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(13)
+    keys = np.sort(rng.integers(0, 3000, 300000).astype(np.int64))
+    counts = rng.integers(1, 2**20, 300000).astype(np.int32)
+    for got, want in zip(combine_sorted_counts(keys, counts, device=cuda),
+                         combine_sorted_counts(keys, counts, device="cpu")):
+        np.testing.assert_array_equal(got, want)
+    a = np.unique(rng.integers(0, 1 << 40, 5000))
+    b = np.unique(np.concatenate([a[::3], rng.integers(0, 1 << 40, 2000)]))
+    np.testing.assert_array_equal(intersect_sorted(a, b, device=cuda),
+                                  intersect_sorted(a, b, device="cpu"))
+
+
+def test_card_aggregations_match_cpu(cuda):
+    """Host QueryProcessor and device aggregate_range on the card against
+    the same on the CPU, scan and index plans, every op."""
+    from repro_torch.core import AggregateSpec, QueryProcessor
+
+    rng = np.random.default_rng(14)
+    n = 6000
+    ts = np.sort(rng.integers(0, 14400, n))
+    vals = {"domain": rng.choice(["a.com", "b.com", "c.com"], n, p=[0.6, 0.3, 0.1]).tolist(),
+            "status": rng.choice(["200", "404"], n, p=[0.8, 0.2]).tolist(),
+            "method": rng.choice(["GET", "POST"], n).tolist(),
+            "bytes_in": rng.integers(1 << 19, 1 << 20, n).astype(str).tolist()}
+    store = EventStore(web_proxy_schema(), n_shards=4, flush_rows=1024)
+    store.ingest(ts, vals)
+    store.flush_all()
+    sizes = dict(n_tablets=4, mem_rows=128, max_runs=2, append_rows=64, capacity=4096)
+    planes = [DistIngestPlane.for_store(store, device=d, **sizes) for d in ("cpu", cuda)]
+    before = (combine_ops.launches, agg_ops.launches)
+    for plane in planes:
+        w = DistBatchWriter(store, plane, batch_rows=700, writer_id=4)
+        w.add(ts, vals)
+        w.close()
+    assert all(torch.equal(planes[0].state[k], planes[1].state[k].cpu()) for k in planes[0].state)
+    assert agg_ops.launches > before[1]  # the card plane's majors combined through the kernel
+    procs = [DistQueryProcessor(store, plane, device=plane.device) for plane in planes]
+    specs = [AggregateSpec(group_by=("status",), time_bucket_s=3600),
+             AggregateSpec(group_by=("method",), op="sum", value_field="bytes_in",
+                           time_bucket_s=3600),
+             AggregateSpec(group_by=("domain",), op="min", value_field="bytes_in"),
+             AggregateSpec(group_by=("status",), op="max", value_field="bytes_in")]
+    trees = [None, pf.Eq("domain", "c.com"),
+             pf.And(pf.Eq("domain", "b.com"), pf.Eq("status", "404"))]
+    for spec in specs:
+        for tree in trees:
+            host = [QueryProcessor(store, device=d).aggregate(spec, 0, 14400, tree)
+                    for d in ("cpu", cuda)]
+            for use_index in (False, True):
+                dev = [dq.aggregate_range(spec, tree, 0, 14400, use_index=use_index)
+                       for dq in procs]
+                for res in host[1:] + dev:
+                    np.testing.assert_array_equal(res.gids, host[0].gids)
+                    np.testing.assert_array_equal(res.values, host[0].values)
+                    np.testing.assert_array_equal(res.counts, host[0].counts)
+    assert combine_ops.launches > before[0]

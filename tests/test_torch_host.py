@@ -240,7 +240,7 @@ def test_host_store_tablets_match_reference():
             np.testing.assert_array_equal(pr_.keys, jr.keys)
             np.testing.assert_array_equal(pr_.cols, jr.cols)
             assert pr_.cols.dtype == jr.cols.dtype
-    got = [(k, c) for k, c in scan_events(ps, 1000, 9000)]
+    got = [(b.keys, b.cols) for b in scan_events(ps, 1000, 9000)]
     from repro.core.scan import scan_events as jax_scan_events
 
     want = [(b.keys, b.cols) for b in jax_scan_events(js, 1000, 9000)]

@@ -118,8 +118,8 @@ RANGES = [(0, T_SPAN), (1800, 5400), (7000, 7000)]
 
 def host_count(store, tree, t0, t1):
     program = tuple(torch.from_numpy(a) for a in pad_program(pf.compile_tree(store, tree)))
-    return sum(int(filter_scan(torch.from_numpy(c), *program).sum())
-               for _, c in scan_events(store, t0, t1))
+    return sum(int(filter_scan(torch.from_numpy(b.cols), *program).sum())
+               for b in scan_events(store, t0, t1))
 
 
 def plan_key(plan):
