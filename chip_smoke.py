@@ -7,7 +7,9 @@ What it runs, in order, and what makes it fail (exit code other than 0,
 no result line):
 
   build      nvcc builds src/repro_torch/kernels/csrc/*.cu for sm_90a
-             (one process per source, in parallel) into build/.
+             (one process per source, in parallel) into build/; among
+             them merge_ranks_search.cu, merge_runs' earlier design, which
+             the kernel rows time beside the merge-path kernel.
   reference  a small seeded workload through three paths that must agree
              bit for bit: the plane on the CPU (plain versions), the plane
              on the card (CUDA kernels), and a card plane started from the
@@ -26,7 +28,10 @@ no result line):
                 tablets of capacity 131,072 (mem_rows 4096, max_runs 4);
                 the runs left at the end are drained with compact_step;
                 publish(); scan and batched_scan for the paper's query
-                tiers A, B and C. merge_runs and filter_scan must launch.
+                tiers A, B and C, and for domain = A AND bytes_in IN
+                300,000 of the dictionary's codes (a program of 1.2 MB,
+                past shared memory). merge_runs and filter_scan must
+                launch.
              2. density planning and the index schemes on the same
                 snapshot: index and batched_index for the tiers; all four
                 schemes on domain AND status=404 for tiers A and B (both
@@ -49,20 +54,30 @@ no result line):
              Every total must equal the count in the generated events and
              a plain-version scan of the same snapshot on the card.
              aggregate_combine must launch on path 1, once per major and
-             per fold increment (the aggregate family's combiner).
+             per fold increment (the aggregate family's combiner), and
+             filter_scan exactly once per scan, index or aggregate step
+             on every path (one launch filters every LSM level).
   kernels    each kernel against its plain version on the card at the
              main path's shapes (merge_runs: the K-way and 2-way stages of
              a major and the incremental fold, for the ev, ix and ag
-             families; filter_scan: the base, run and memtable levels and
-             the index step's candidate rows; merge_intersect: the posting
+             families, with the earlier design's time beside; filter_scan:
+             the fused scan step over base, runs and memtable, each level
+             alone, the index step's candidate rows alone and fused, and
+             on the base In(bytes_in) sets of 3,000, 12,000 and 30,000
+             codes staged in shared memory and with their codes in global
+             memory, and of 300,000 codes; merge_intersect: the posting
              slabs of one AND-B batch, and an int64 case; combine_scan:
-             all four ops on the largest tier-A batch of path 3 and on
-             1,048,576 synthetic rows with one group over many tiles and a
-             filter that rejects half its rows; aggregate_combine: the
+             all four ops on the largest tier-A batch of path 3, its sum
+             with the 300,000-code program, and on 1,048,576 synthetic
+             rows with one group over many tiles and a filter that
+             rejects half its rows; aggregate_combine: the
              aggregate family's 2-way major and fold inputs and an int32
              combine_sorted_counts case), with the error computed from the
-             compared tensors (it must be 0), the kernel's time, its
-             bound, the plain version's time and, where one PyTorch call
+             compared tensors (it must be 0), the kernel's time (cuda_ms:
+             CUDA events around back-to-back calls, host dispatch
+             included) and its device time alone (device_ms: a
+             torch.profiler window), its bound, the plain version's time
+             and, where one PyTorch call
              computes the same function, that call's time (a stable
              torch.sort for merge_runs, torch.isin for merge_intersect;
              none for combine_scan and aggregate_combine, which also
@@ -164,6 +179,73 @@ def cuda_ms(fn):
             gc.enable()
 
 
+# How each device_ms was taken, in order ("profiler" or "queued events").
+DEVICE_MS_BY = []
+
+
+def device_ms(fn, names, calls=10):
+    """The named kernels' own device time per fn() call, in ms.
+
+    First a torch.profiler window over ``calls`` calls (CUDA activity
+    only): the time of every device kernel or memset whose name holds one
+    of ``names``, summed and divided by the calls. On the H100 runs so far
+    the profiler now and then reported no device events for a window, and
+    once for every window after the 18th; when two windows in a row hold
+    fewer than ``calls`` of them it falls back to queued_device_ms (CUDA events around the calls queued behind a
+    spin kernel, so no host gap
+    enters). Each row names its method beside the number."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+        if len(us) >= calls:
+            DEVICE_MS_BY.append("profiler")
+            return sum(us) / calls / 1e3
+    DEVICE_MS_BY.append("queued events")
+    return queued_device_ms(fn, calls)
+
+
+def queued_device_ms(fn, calls=10):
+    """Device time per fn() call, in ms, with no host time in it: a spin
+    kernel holds the stream while the host queues ``calls`` calls between
+    two CUDA events, so the card runs them back to back. The spin is sized
+    from the host's time per call and checked to outlast the queueing;
+    fn must not synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_s = max(0.02, 4 * calls * host_s)
+    for _ in range(3):
+        spin0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin0.record()
+        torch.cuda._sleep(int(spin_s * 2e9))  # cycles; the clock is under 2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queued_s = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        if spin0.elapsed_time(start) / 1e3 > queued_s:
+            return start.elapsed_time(end) / calls
+        spin_s *= 4
+    raise CheckFailed("queued_device_ms: the host could not queue the calls behind the spin")
+
+
 def pick_tiers(source, domain_counts):
     """The paper's query tiers by benchmarks/common.py's rule, on counts of
     the generated events: A the most popular domain, B a moderately
@@ -184,11 +266,12 @@ def pick_tiers(source, domain_counts):
 
 
 def program_tensors(store, tree, device):
-    import torch
+    """The tree's program prepared on the device (a Program; it unpacks
+    into the original form the plain versions take)."""
     from repro_torch.core.filter import compile_tree
-    from repro_torch.kernels.filter_scan import pad_program
+    from repro_torch.kernels.filter_scan import program_tensors as prepare
 
-    return tuple(torch.from_numpy(a).to(device) for a in pad_program(compile_tree(store, tree)))
+    return prepare(compile_tree(store, tree), device)
 
 
 def plain_scan_count(d, program, t0, t1):
@@ -380,13 +463,43 @@ def merge_inputs(pre, fam, sentinel):
     }
 
 
-def time_merge(name, keys, bounds, lengths):
+def search_ranks(keys, bounds, lengths):
+    """The earlier design of merge_runs (csrc/merge_ranks_search.cu: one
+    binary search per live entry into every other run), called straight
+    from the library as the merge-path kernel's yardstick; its launches
+    are not counted."""
+    import torch
+    from repro_torch.kernels.build import check as check_launch, load_library
+
+    lib = load_library()
+    fn = lib.merge_ranks_search_i32 if keys.dtype == torch.int32 else lib.merge_ranks_search_i64
+    dev_bounds = torch.tensor(bounds, dtype=torch.int64, device=keys.device)
+    out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+
+    def run():
+        check_launch(fn(keys.data_ptr(), dev_bounds.data_ptr(), lengths.data_ptr(),
+                        out.data_ptr(), keys.shape[0], len(bounds) - 1, keys.shape[1], stream),
+                     "merge_ranks_search")
+        return out
+
+    return run
+
+
+def time_merge(name, keys, bounds, lengths, payload):
+    """merge_runs against its plain version and its earlier design, and
+    the scatter by rank that follows it in the plane's merges
+    (merge_runs/ops.py::_scatter_by_rank) of the keys and a payload of the
+    family's width and type (W = payload.shape[-1])."""
     import torch
     from repro_torch.kernels.merge_runs import merge_ranks, merge_ranks_ref
+    from repro_torch.kernels.merge_runs.ops import _scatter_by_rank
 
     got = merge_ranks(keys, bounds, lengths)
     want = merge_ranks_ref(keys, bounds, lengths)
     err = int((got.long() - want.long()).abs().max())
+    earlier = search_ranks(keys, bounds, lengths)
+    check(torch.equal(earlier(), want), f"{name}: the earlier merge design disagrees")
     b, n = keys.shape
     live = int(lengths.sum())
     caps = [bounds[o + 1] - bounds[o] for o in range(len(bounds) - 1)]
@@ -394,6 +507,14 @@ def time_merge(name, keys, bounds, lengths):
         "shape": name, "dims": [b, n], "runs": caps, "live_keys": live,
         "dtype": str(keys.dtype).replace("torch.", ""), "max_abs_err": err,
         "ms": cuda_ms(lambda: merge_ranks(keys, bounds, lengths)),
+        "device_ms": device_ms(lambda: merge_ranks(keys, bounds, lengths),
+                               ("merge_path_kernel", "Memset")),
+        "device_ms_by": DEVICE_MS_BY[-1],
+        "earlier_design_ms": cuda_ms(earlier),
+        "earlier_design_device_ms": device_ms(earlier, ("search_ranks_kernel",)),
+        "earlier_design_device_ms_by": DEVICE_MS_BY[-1],
+        "scatter_ms": cuda_ms(lambda: _scatter_by_rank(keys, payload, got)),
+        "payload_width": payload.shape[-1],
         "plain_ms": cuda_ms(lambda: merge_ranks_ref(keys, bounds, lengths)),
         # The live keys read once, the lengths once, one int32 rank written
         # per entry; dead entries are not read.
@@ -403,35 +524,68 @@ def time_merge(name, keys, bounds, lengths):
         # The same bound if every entry's key were read, dead ones included.
         "bound_ms_all_keys": b * n * (keys.element_size() + 4) / HBM_BYTES_PER_S * 1e3,
         "library_ms": cuda_ms(lambda: torch.sort(keys, dim=1, stable=True)),
-        "dependent_loads_per_live_key": max(
-            sum(max(cap, 1).bit_length() for o, cap in enumerate(caps) if o != j)
-            for j in range(len(caps))),
     }
 
 
-def time_filter(name, cols, program, rich):
-    from repro_torch.kernels.filter_scan import filter_scan
+def time_filter(name, levels, program, rich=None, both_placements=False):
+    """filter_scan over one block or, fused, over a step's levels (one
+    launch) against the plain version per level, with the rich program
+    too where given. both_placements also times the program staged whole
+    in shared memory (SHARED_PROGRAM_BYTES at the opt-in limit) and with
+    its codes in global memory (SHARED_PROGRAM_BYTES = 0), beside its
+    default placement."""
+    from repro_torch.kernels import program_eval
+    from repro_torch.kernels.build import shared_optin_bytes
+    from repro_torch.kernels.filter_scan import filter_scan_levels
     from repro_torch.kernels.program_eval import program_eval_rows
 
-    f = cols.shape[-1]
-    rows = cols.reshape(-1, f)
+    levels = levels if isinstance(levels, list) else [levels]
+    f = levels[0].shape[-1]
+    flat = [c.reshape(-1, f) for c in levels]
     # The plain version walks the program on the host: give it the program
     # lists there, so that its time holds no device-to-host copies.
-    host_prog = (*(p.cpu() for p in program[:3]), program[3])
+    opcodes, arg0, arg1, codesets = program
+    host_prog = (opcodes.cpu(), arg0.cpu(), arg1.cpu(), codesets)
     err = 0
-    for prog in (program, rich):
-        got = filter_scan(cols, *prog).reshape(-1)
-        want = program_eval_rows(rows, *prog)
-        err = max(err, int((got.int() - want.int()).abs().max()))
-    n = rows.shape[0]
-    return {
-        "shape": name, "dims": list(cols.shape), "dtype": "int32", "max_abs_err": err,
-        "ms": cuda_ms(lambda: filter_scan(cols, *program)),
-        "plain_ms": cuda_ms(lambda: program_eval_rows(rows, *host_prog)),
-        "bound_ms": (n * f * 4 + n) / HBM_BYTES_PER_S * 1e3,
+    for prog in (program, rich) if rich is not None else (program,):
+        for got, rows in zip(filter_scan_levels(levels, prog), flat):
+            want = program_eval_rows(rows, *prog)
+            err = max(err, int((got.reshape(-1).int() - want.int()).abs().max()))
+    n = sum(r.shape[0] for r in flat)
+    staged = program.staged_words(shared_optin_bytes())
+    row = {
+        "shape": name, "dims": [list(c.shape) for c in levels], "dtype": "int32",
+        "codes": program.n_codes, "program_bytes": program.nbytes,
+        "placement": ("shared" if staged == program.header_words + program.n_codes else
+                      "header in shared, codes in global" if staged == program.header_words
+                      else "global"), "max_abs_err": err,
+        "ms": cuda_ms(lambda: filter_scan_levels(levels, program)),
+        "device_ms": device_ms(lambda: filter_scan_levels(levels, program),
+                               ("filter_levels_kernel",)),
+        "device_ms_by": DEVICE_MS_BY[-1],
+        "plain_ms": cuda_ms(lambda: [program_eval_rows(r, *host_prog) for r in flat]),
+        # The rows and the program's words read once, the masks written once.
+        "bound_ms": (n * f * 4 + n + program.nbytes) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": None,
     }
+    keep = program_eval.SHARED_PROGRAM_BYTES
+    for placement, limit in (("shared", shared_optin_bytes()), ("global", 0)):
+        if not both_placements:
+            break
+        program_eval.SHARED_PROGRAM_BYTES = limit
+        try:
+            got = filter_scan_levels(levels, program)
+            for g, rows in zip(got, flat):
+                check(torch_equal(g.reshape(-1), program_eval_rows(rows, *program)),
+                      f"{name}: the {placement} placement disagrees")
+            row[f"{placement}_ms"] = cuda_ms(lambda: filter_scan_levels(levels, program))
+            row[f"{placement}_device_ms"] = device_ms(
+                lambda: filter_scan_levels(levels, program), ("filter_levels_kernel",))
+            row[f"{placement}_device_ms_by"] = DEVICE_MS_BY[-1]
+        finally:
+            program_eval.SHARED_PROGRAM_BYTES = keep
+    return row
 
 
 def time_intersect(name, a, b):
@@ -458,6 +612,8 @@ def time_intersect(name, a, b):
         "max_abs_err": err, "live_probes": int((a < torch.iinfo(a.dtype).max).sum()),
         "live_hits": int((got & (a < torch.iinfo(a.dtype).max)).sum()),
         "ms": cuda_ms(lambda: member_mask(a, b)),
+        "device_ms": device_ms(lambda: member_mask(a, b), ("member_mask_kernel",)),
+        "device_ms_by": DEVICE_MS_BY[-1],
         "plain_ms": cuda_ms(lambda: member_mask_keys(a, b)),
         # Each probe and each set key read once, one bool written per probe.
         "bound_ms": (rows * (n + m) * a.element_size() + rows * n) / HBM_BYTES_PER_S * 1e3,
@@ -471,17 +627,21 @@ def time_combine(name, keys, vals, cols, program, op):
     from repro_torch.kernels.combine_scan import combine_scan_ref, combine_segments
 
     v = None if op == "count" else vals
-    got = combine_segments(keys, v, cols, *program, op)
+    got = combine_segments(keys, v, cols, program, op)
     want = combine_scan_ref(keys, vals, cols, *program, op)
     err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
     n, f = cols.shape
-    # Keys, values (not read for count) and codes read once; a head flag,
-    # an int64 aggregate and an int32 count written once per row.
-    read = n * (8 + (0 if op == "count" else 4) + 4 * f)
+    # Keys, values (not read for count), codes and the program's words read
+    # once; a head flag, an int64 aggregate and an int32 count written once
+    # per row.
+    read = n * (8 + (0 if op == "count" else 4) + 4 * f) + program.nbytes
     return {
         "shape": f"{name} {op}", "dims": [n, f], "dtype": "int64 keys, int32 values and codes",
-        "groups": int(got[0].sum()), "max_abs_err": err,
-        "ms": cuda_ms(lambda: combine_segments(keys, v, cols, *program, op)),
+        "codes": program.n_codes, "groups": int(got[0].sum()), "max_abs_err": err,
+        "ms": cuda_ms(lambda: combine_segments(keys, v, cols, program, op)),
+        "device_ms": device_ms(lambda: combine_segments(keys, v, cols, program, op),
+                               ("combine_scan_kernel", "combine_scan_stitch")),
+        "device_ms_by": DEVICE_MS_BY[-1],
         "plain_ms": cuda_ms(lambda: combine_scan_ref(keys, vals, cols, *program, op)),
         "bound_ms": (read + n * 13) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
@@ -512,6 +672,9 @@ def time_aggregate(name, keys, counts):
         "shape": name, "dims": list(keys.shape), "dtype": f"int64 keys, {count_type} counts",
         "live_keys": live, "groups": int(got[0].sum()), "max_abs_err": err,
         "ms": cuda_ms(lambda: combine_blocks(keys, counts)),
+        "device_ms": device_ms(lambda: combine_blocks(keys, counts),
+                               ("aggregate_combine_kernel", "aggregate_combine_stitch")),
+        "device_ms_by": DEVICE_MS_BY[-1],
         "plain_ms": cuda_ms(lambda: combine_blocks_ref(keys, counts)),
         "bound_ms": keys.numel() * per_entry / HBM_BYTES_PER_S * 1e3,
         "bound_ms_live_keys": live * per_entry / HBM_BYTES_PER_S * 1e3,
@@ -557,13 +720,13 @@ def aggregate_step_breakdown(store, d, program, dev):
     g = resolve_grouping(store, agg_specs()["a count/status/hour"], 0, T_SPAN)
     vt = torch.ones(1, dtype=torch.int32, device=dev)
     probe = torch.tensor([0, 1 << 30], dtype=torch.int32, device=dev)
-    hit = filter_scan(d.cols, *program) & _in_range(d.rev_ts, probe, d.counts)
+    hit = filter_scan(d.cols, program) & _in_range(d.rev_ts, probe, d.counts)
     gid = _group_ids(d.rev_ts, d.cols, g)
     ones = hit.reshape(-1).to(torch.int64)
     return {
         "groups": g.size, "base_rows": int(hit.numel()),
         "step_ms": cuda_ms(lambda: aggregate_step(d, program, vt, g, 0, 1 << 30)),
-        "base_filter_ms": cuda_ms(lambda: filter_scan(d.cols, *program)),
+        "base_filter_ms": cuda_ms(lambda: filter_scan(d.cols, program)),
         "base_segment_aggregate_ms": cuda_ms(lambda: _segment_aggregate(d.rev_ts, d.cols, hit,
                                                                         g, vt)),
         "base_group_ids_ms": cuda_ms(lambda: _group_ids(d.rev_ts, d.cols, g)),
@@ -580,6 +743,7 @@ def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts):
     from repro_torch import obs
     from repro_torch.core import Eq, And, QueryProcessor, QueryStats
     from repro_torch.core import merge_aggregate_blocks, resolve_grouping
+    from repro_torch.kernels.filter_scan import ops as filter_ops
 
     qp = QueryProcessor(store, device=dev)
     queries = [(tier, Eq("domain", dom), domain_counts[dom]) for tier, dom in tiers.items()]
@@ -609,11 +773,17 @@ def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts):
             for use_index in (False, True):
                 obs.clear()
                 st = QueryStats()
+                filter_before = filter_ops.launches
                 t0 = time.perf_counter()
                 res = dq.aggregate_range(spec, tree, 0, T_SPAN, use_index=use_index, stats=st)
                 secs = time.perf_counter() - t0
                 spans = summarize_spans(obs.get_tracer().records)
                 key = "device_index_plan" if use_index else "device_scan_plan"
+                steps = sum(spans.get(k, {}).get("n", 0)
+                            for k in ("query.aggregate_scan", "query.aggregate_index"))
+                check(filter_ops.launches - filter_before == steps,
+                      f"path 3 {label} {sname} {key}: filter_scan launched "
+                      f"{filter_ops.launches - filter_before} times for {steps} steps")
                 row[key] = {
                     "s": secs, "plan": st.plan.describe(), "mode": st.plan.mode,
                     "index_keys_scanned": st.index_keys_scanned,
@@ -642,12 +812,15 @@ def run_query(dq, scheme, tree, label, want):
     """One scheme run over the 4-hour range, with tracing on: time to the
     first batch and to the last, the plan, the run's QueryStats, and its
     spans. In an index-mode run every query.scan_range span is a batch that
-    truncated and fell back to the exact scan."""
+    truncated and fell back to the exact scan. filter_scan must launch once
+    per step (each query.scan_range and query.scan_index_range span)."""
     from repro_torch import obs
     from repro_torch.core.dist_query import QueryStats
+    from repro_torch.kernels.filter_scan import ops as filter_ops
 
     obs.clear()
     stats = QueryStats()
+    filter_before = filter_ops.launches
     t0 = time.perf_counter()
     it = dq.run_scheme(scheme, 0, T_SPAN, tree, stats=stats)
     first = next(it, None)
@@ -657,11 +830,17 @@ def run_query(dq, scheme, tree, label, want):
         rows += blk.count
     total_s = time.perf_counter() - t0
     spans = summarize_spans(obs.get_tracer().records)
+    steps = sum(spans.get(k, {}).get("n", 0)
+                for k in ("query.scan_range", "query.scan_index_range"))
+    filter_launches = filter_ops.launches - filter_before
+    check(filter_launches == steps, f"{label} {scheme}: filter_scan launched "
+          f"{filter_launches} times for {steps} steps")
     plan = stats.plan
     q = {
         "query": label, "scheme": scheme, "rows": rows, "want": want, "tree": tree,
         "plan": plan.describe(), "mode": plan.mode, "n_conds": len(plan.index_conds),
-        "batches": stats.batches, "ttfr_s": ttfr, "total_s": total_s,
+        "batches": stats.batches, "steps": steps, "filter_launches": filter_launches,
+        "ttfr_s": ttfr, "total_s": total_s,
         "fallbacks": spans.get("query.scan_range", {}).get("n", 0) if plan.mode == "index" else 0,
         "index_keys_scanned": stats.index_keys_scanned,
         "density_s": spans.get("query.density", {}).get("s", 0.0),
@@ -794,6 +973,20 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     for tier in tiers:
         for scheme in ("scan", "batched_scan"):
             queries.append(run_query(dq, scheme, eq[tier], tier, domain_counts[tiers[tier]]))
+    # A program far past shared memory: domain = A AND bytes_in IN 300,000
+    # of the dictionary's codes (of its about a million; fewer on a small
+    # rehearsal), counted in the events as the writer encoded them.
+    bdict = store.dictionaries["bytes_in"]
+    n_in = min(300_000, len(bdict) // 2)
+    in_codes = np.sort(np.random.default_rng(seed + 2).choice(len(bdict), n_in, replace=False))
+    in_values = tuple(bdict.decode(int(c)) for c in in_codes)
+    dfid, bfid = store.schema.field_id("domain"), store.schema.field_id("bytes_in")
+    a_code = store.dictionaries["domain"].lookup(tiers["A"])
+    want_big = sum(int(((cols[:, dfid] == a_code) & np.isin(cols[:, bfid], in_codes)).sum())
+                   for _, cols in encoded)
+    big_in = And(eq["A"], In("bytes_in", in_values))
+    for scheme in ("scan", "batched_scan"):
+        queries.append(run_query(dq, scheme, big_in, f"A and bytes_in in {n_in:,}", want_big))
     launches_1 = read_launches()
     log("launches", "path 1 (ingest and scans): " + json.dumps(launches_1))
     check(launches_1["merge_runs"] > 0 and launches_1["filter_scan"] > 0
@@ -881,19 +1074,35 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     # Each kernel against its plain version at the main path's shapes.
     merge_rows = []
     for fam, sentinel in (("ev", REV_PAD), ("ix", KEY_PAD64), ("ag", KEY_PAD64)):
+        rc = pre[f"{fam}_run_c"]
         for stage, inputs in merge_inputs(pre, fam, sentinel).items():
-            row = time_merge(f"{fam} {stage}", *inputs)
+            keys = inputs[0]
+            payload = torch.zeros((*keys.shape, rc.shape[-1]), dtype=rc.dtype, device=dev)
+            row = time_merge(f"{fam} {stage}", *inputs, payload)
+            del payload
             merge_rows.append(row)
             log("kernel", json.dumps({"name": "merge_runs", **row}))
     dom_a = tiers["A"]
     program = program_tensors(store, Eq("domain", dom_a), dev)
     rich = program_tensors(store, Or(Eq("domain", dom_a), Not(In("status", ("200", "404"))),
                                      In("method", ("PUT", "HEAD", "never-seen"))), dev)
-    filter_rows = []
+    filter_rows = [time_filter("fused step: base + runs + memtable",
+                               [cols for _, cols, _ in d.ev_levels()], program, rich)]
     for name, cols in (("base (T,R,F)", d.cols), ("runs (T,K,M,F)", pre["ev_run_c"]),
                        ("memtable (T,M,F)", pre["ev_mem_c"])):
-        row = time_filter(name, cols, program, rich)
-        filter_rows.append(row)
+        filter_rows.append(time_filter(name, cols, program, rich))
+    # Big sets on the base: 3,000, 12,000 and 30,000 codes (12, 48 and 120
+    # KB), each timed staged whole in shared memory (the last two in the
+    # opt-in shared memory) and with its codes in global memory, which
+    # sets SHARED_PROGRAM_BYTES; and 300,000 (past shared memory, searched
+    # in global memory).
+    for step in (100, 25, 10):
+        prog = program_tensors(store, In("bytes_in", in_values[::step]), dev)
+        filter_rows.append(time_filter(f"base In(bytes_in, {prog.n_codes:,} codes)", d.cols,
+                                       prog, both_placements=True))
+    in_300k = program_tensors(store, In("bytes_in", in_values), dev)
+    filter_rows.append(time_filter(f"base In(bytes_in, {n_in:,} codes)", d.cols, in_300k))
+    for row in filter_rows:
         log("kernel", json.dumps({"name": "filter_scan", **row}))
     # The index step's inputs for the AND-B batch that expanded the most
     # rows: the posting slabs merge_intersect probes, and the base level's
@@ -905,10 +1114,16 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     slabs, _ = _posting_slabs(d, lo, hi, dq.index_postings)
     cand, live = _combine_postings(slabs, plan.combine)
     _, r_cols, _, _, _ = _expand_level(cand, live, d.rev_ts, d.cols, d.counts, dq.index_rows)
-    row = time_filter("index candidates (T,max_rows,F)", r_cols,
-                      program_tensors(store, ands["B"], dev), rich)
-    filter_rows.append(row)
-    log("kernel", json.dumps({"name": "filter_scan", **row}))
+    _, r_runs, _, _, _ = _expand_level(cand, live, d.run_rev_ts, d.run_cols, d.run_counts,
+                                       dq.index_rows)
+    _, r_mem, _, _, _ = _expand_level(cand, live, d.mem_rev_ts, d.mem_cols, d.mem_counts,
+                                      dq.index_rows)
+    for name, levels in (("index candidates (T,max_rows,F)", r_cols),
+                         ("fused index step: candidates of base + runs + memtable",
+                          [r_cols, r_runs, r_mem])):
+        row = time_filter(name, levels, program_tensors(store, ands["B"], dev), rich)
+        filter_rows.append(row)
+        log("kernel", json.dumps({"name": "filter_scan", **row}))
     rng = np.random.default_rng(seed)
     syn_b = np.sort(rng.integers(0, 2**53, slabs[:, 0].shape), axis=1)
     syn_a = np.where(rng.random(syn_b.shape) < 0.5,
@@ -940,6 +1155,8 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     batch = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
              for x in (gids[order], grouping.values(cols)[order], cols[order])]
     combine_rows = [time_combine("tier-A batch", *batch, program, op) for op in OPS]
+    combine_rows.append(time_combine(f"tier-A batch In(bytes_in, {n_in:,} codes)", *batch,
+                                     in_300k, "sum"))
     n_syn = 1 << 20
     syn_gids = np.sort(rng.integers(0, 4000, n_syn))
     syn_gids[n_syn // 2:] = 4000  # one group over the last 1024 tiles of 512 rows
@@ -977,14 +1194,17 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         return {
             "name": name, "route": route, "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "ms": top["ms"], "device_ms": top["device_ms"], "device_ms_by": top["device_ms_by"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "shape": main_shape, "shapes": rows,
         }
 
     kernels = [
         summary("merge_runs", "cuda", MERGE_SRC, MERGE_REPLACES, merge_rows, "ix two_way"),
-        summary("filter_scan", "cuda", FILTER_SRC, FILTER_REPLACES, filter_rows, "base (T,R,F)"),
+        summary("filter_scan", "cuda", FILTER_SRC, FILTER_REPLACES, filter_rows,
+                "fused step: base + runs + memtable"),
         summary("merge_intersect", "cuda", INTERSECT_SRC, INTERSECT_REPLACES, intersect_rows,
                 "AND-B batch (T,S) int32"),
         summary("combine_scan", "cuda", COMBINE_SRC, COMBINE_REPLACES, combine_rows,
@@ -1025,7 +1245,9 @@ def main(argv=None):
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
-    report.update(device=kind, nvidia_smi=smi, seed=args.seed, torch=torch.__version__)
+    report.update(device=kind, nvidia_smi=smi, seed=args.seed, torch=torch.__version__,
+                  device_ms_by=dict(Counter(DEVICE_MS_BY)))
+    log("kernel", "device_ms taken by " + json.dumps(report["device_ms_by"]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -9,7 +9,7 @@ device step over a time sub-range. The scan step:
 
     time-range restriction   sorted rev_ts -> per-tablet searchsorted
     filter                   the postfix predicate program, through the
-                             filter_scan kernel
+                             filter_scan kernel: one launch for all levels
     count                    per tablet, summed over T
     top-k newest             per level, merged by rev_ts across levels
 
@@ -24,8 +24,9 @@ The index step (paper Fig 2), for index-mode plans:
     expand      candidate rev_ts -> rows of every event level by binary
                 search and prefix-sum expansion, min(index_rows, level
                 size) rows per level
-    filter      the FULL tree re-checks the candidate rows (filter_scan),
-                then count and top-k as in the scan step
+    filter      the FULL tree re-checks the candidate rows of every level
+                (one filter_scan launch), then count and top-k as in the
+                scan step
 
 A posting or row slab that overflows reports truncation and the batch
 reruns as the exact scan step. The planner's densities come from the
@@ -39,7 +40,9 @@ for index-mode plans the index aggregate step reduces only the gathered
 candidate rows, falling back to the aggregate step on truncation.
 
 Every read searches ALL LSM levels of the snapshot — the base, the K
-sorted-run slabs and the sealed memtable — so publish() never folds.
+sorted-run slabs and the sealed memtable — so publish() never folds. A
+query's filter program is prepared on the device once (a
+kernels.program_eval.Program) and every step of the query reuses it.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ from .planner import QueryPlan, plan_query
 from .query import QueryStats
 from .store import EventStore
 from ..kernels.combine_scan.ref import IDENTITY
-from ..kernels.filter_scan import filter_scan, program_tensors
+from ..kernels.filter_scan import filter_scan_levels, program_tensors
 from ..kernels.merge_intersect import member_mask
 from ..obs import span
 
@@ -174,14 +177,13 @@ def _sum_levels(base: torch.Tensor, runs: torch.Tensor, mem: torch.Tensor) -> to
     return base + runs.sum(dim=1, dtype=torch.int32) + mem
 
 
-def _filter_topk(rev, cols, mask, program, top_k: int):
-    """Filter, count and top-k newest over one level's rows, batched over
-    leading dims: rev (..., R), cols (..., R, F), mask (..., R) the rows
-    in play. Returns int32 (...) counts, and the (..., k) newest matches'
-    rev_ts (INT32_MAX-padded) and (..., k, F) cols (-1 padded), k =
-    min(top_k, R)."""
+def _filter_topk(rev, cols, hit, top_k: int):
+    """Count and top-k newest over one level's matching rows, batched over
+    leading dims: rev (..., R), cols (..., R, F), hit (..., R) the rows in
+    play that pass the filter. Returns int32 (...) counts, and the (..., k)
+    newest matches' rev_ts (INT32_MAX-padded) and (..., k, F) cols (-1
+    padded), k = min(top_k, R)."""
     r, f = rev.shape[-1], cols.shape[-1]
-    hit = filter_scan(cols, *program) & mask
     count = hit.sum(dim=-1, dtype=torch.int32)
     idx = torch.arange(r, dtype=torch.int32, device=rev.device)
     rank = torch.where(hit, idx, r)
@@ -217,22 +219,19 @@ def _merged_slates(parts, top_k: int):
     return _sum_levels(c0, cr, cm), out_ts, out_cols
 
 
-def _scan_level(rev, cols, live, program, probe, top_k: int):
-    """Range-restrict + filter + top-k over one level, batched over its
-    leading dims; probe holds the int32 rev_ts range [lo, hi)."""
-    return _filter_topk(rev, cols, _in_range(rev, probe, live), program, top_k)
-
-
 def scan_step(d: DistStore, program, rts_lo: int, rts_hi: int, top_k: int = 128):
     """One scan over every tablet and every LSM level of a snapshot — the
     port of the reference's run-aware build_scan_step. ``program`` is the
-    padded program as (opcodes, arg0, arg1, codesets) int32 tensors on the
-    snapshot's device; the rev_ts range is [rts_lo, rts_hi). Returns the
-    int32 total count, the (T, k) newest matches' rev_ts per tablet (-1
+    query's Program on the snapshot's device (or the original form's four
+    int32 tensors); the rev_ts range is [rts_lo, rts_hi). Per level the
+    range restriction, and for all levels one filter_scan launch. Returns
+    the int32 total count, the (T, k) newest matches' rev_ts per tablet (-1
     where there is none) and their (T, k, F) cols."""
     probe = torch.tensor([rts_lo, rts_hi], dtype=torch.int32).to(d.device)
-    parts = [_scan_level(rev, cols, live, program, probe, top_k)
-             for rev, cols, live in d.ev_levels()]
+    levels = d.ev_levels()
+    hits = filter_scan_levels([cols for _, cols, _ in levels], program)
+    parts = [_filter_topk(rev, cols, hit & _in_range(rev, probe, live), top_k)
+             for (rev, cols, live), hit in zip(levels, hits)]
     count, out_ts, out_cols = _merged_slates(parts, top_k)
     return count.sum(dtype=torch.int32), out_ts, out_cols
 
@@ -366,8 +365,9 @@ def index_step(d: DistStore, program, lo, hi, combine: str, top_k: int = 128,
     means a slab overflowed and the count is a lower bound."""
     levels, truncated, candidates = _gather_candidates(d, lo, hi, combine, max_postings,
                                                        max_rows)
-    parts = [_filter_topk(r_rev, r_cols, valid, program, top_k)
-             for r_rev, r_cols, valid, _, _ in levels]
+    hits = filter_scan_levels([lv[1] for lv in levels], program)
+    parts = [_filter_topk(r_rev, r_cols, hit & valid, top_k)
+             for (r_rev, r_cols, valid, _, _), hit in zip(levels, hits)]
     count, out_ts, out_cols = _merged_slates(parts, top_k)
     return (count.sum(dtype=torch.int32), out_ts, out_cols,
             truncated.sum(dtype=torch.int32), candidates.sum(dtype=torch.int32))
@@ -438,15 +438,17 @@ def aggregate_step(d: DistStore, program, value_table, grouping: ResolvedGroupin
                    rts_lo: int, rts_hi: int):
     """Scan-time aggregation over every tablet and LSM level — the port of
     the reference's run-aware build_aggregate_step: per level the rev_ts
-    range [rts_lo, rts_hi) and the filter program (filter_scan) select the
-    rows, and _segment_aggregate reduces them over the tablets and run
-    slots in one scatter (the reference's per-tablet segments and psum,
-    pmin or pmax over the mesh). Returns the dense (n_groups,) aggs and
-    int64 cnts."""
+    range [rts_lo, rts_hi) and the filter program (one filter_scan launch
+    for all levels) select the rows, and _segment_aggregate reduces them
+    over the tablets and run slots in one scatter (the reference's
+    per-tablet segments and psum, pmin or pmax over the mesh). Returns the
+    dense (n_groups,) aggs and int64 cnts."""
     probe = torch.tensor([rts_lo, rts_hi], dtype=torch.int32).to(d.device)
-    parts = [_segment_aggregate(rev, cols, filter_scan(cols, *program)
-                                & _in_range(rev, probe, live), grouping, value_table)
-             for rev, cols, live in d.ev_levels()]
+    levels = d.ev_levels()
+    hits = filter_scan_levels([cols for _, cols, _ in levels], program)
+    parts = [_segment_aggregate(rev, cols, hit & _in_range(rev, probe, live), grouping,
+                                value_table)
+             for (rev, cols, live), hit in zip(levels, hits)]
     return _combine_level_aggs(parts, grouping.spec.op)
 
 
@@ -461,9 +463,9 @@ def index_aggregate_step(d: DistStore, program, value_table, grouping: ResolvedG
     the caller reruns the exact aggregate step) and candidates."""
     levels, truncated, candidates = _gather_candidates(d, lo, hi, combine, max_postings,
                                                        max_rows)
-    parts = [_segment_aggregate(r_rev, r_cols, filter_scan(r_cols, *program) & valid,
-                                grouping, value_table)
-             for r_rev, r_cols, valid, _, _ in levels]
+    hits = filter_scan_levels([lv[1] for lv in levels], program)
+    parts = [_segment_aggregate(r_rev, r_cols, hit & valid, grouping, value_table)
+             for (r_rev, r_cols, valid, _, _), hit in zip(levels, hits)]
     aggs, cnts = _combine_level_aggs(parts, grouping.spec.op)
     return aggs, cnts, truncated.sum(dtype=torch.int32), candidates.sum(dtype=torch.int32)
 
@@ -523,6 +525,8 @@ class QueryRun:
         if stats is not None:
             stats.plan = self.plan
         self._empty = self.plan.mode == "empty"
+        # The filter program, prepared on the device once for every batch.
+        self.program = None if self._empty else proc._program(tree, self.dist.device)
         self._single_done = False
         self.batcher: Optional[AdaptiveBatcher] = None
         if batched and not self._empty:
@@ -548,7 +552,7 @@ class QueryRun:
         t0 = time.perf_counter()
         with span("query.step", cat="query", mode=self.plan.mode) as sp:
             blk = self.proc._exec_range(self.plan, self.tree, int(lo), int(hi), self.stats,
-                                        dist=self.dist)
+                                        dist=self.dist, program=self.program)
             sp.set(rows=blk.count)
         runtime = time.perf_counter() - t0
         if self.batcher is None:
@@ -636,17 +640,19 @@ class DistQueryProcessor:
 
     # ------------------------------------------------------------ steps
     def _program(self, tree, device: torch.device):
-        """The tree's padded program as four int32 tensors on the device,
-        copied in one transfer."""
+        """The tree's program prepared on the device (a Program, copied in
+        one transfer); a query makes it once and every step reuses it."""
         return program_tensors(compile_tree(self.store, tree), device)
 
-    def scan_range(self, tree, t0: int, t1: int, dist: Optional[DistStore] = None
-                   ) -> Tuple[int, np.ndarray, np.ndarray]:
+    def scan_range(self, tree, t0: int, t1: int, dist: Optional[DistStore] = None,
+                   program=None) -> Tuple[int, np.ndarray, np.ndarray]:
         """One range scan across all tablets and all LSM levels, ts in
         [t0, t1]. Returns (global count, the top-k newest matching rows per
-        tablet as (ts, cols) numpy arrays). ``dist`` pins a snapshot."""
+        tablet as (ts, cols) numpy arrays). ``dist`` pins a snapshot;
+        ``program`` is the tree's prepared Program (made here if None)."""
         d = dist if dist is not None else self._sync()
-        program = self._program(tree, d.device)
+        if program is None:
+            program = self._program(tree, d.device)
         rts_lo = int(keypack.rev_ts(t1))
         rts_hi = int(keypack.rev_ts(t0)) + 1
         with span("query.scan_range", cat="query") as sp:
@@ -675,15 +681,16 @@ class DistQueryProcessor:
         return lo, hi
 
     def scan_index_range(self, plan: QueryPlan, tree, t0: int, t1: int,
-                         dist: Optional[DistStore] = None):
+                         dist: Optional[DistStore] = None, program=None):
         """One index-mode range across all tablets and levels (paper Fig 2
         on the device): postings per condition per level, the device-side
         intersect or union, candidate rows from every level, and the FULL
         tree re-checked on them. Returns (global count, top-k (ts, cols),
         truncated, candidates); truncated > 0 means a slab overflowed and
-        the count is a lower bound."""
+        the count is a lower bound. ``program`` as in scan_range."""
         d = dist if dist is not None else self._sync()
-        program = self._program(tree, d.device)
+        if program is None:
+            program = self._program(tree, d.device)
         lo, hi = self._cond_ranges(plan, t0, t1)
         ranges = torch.from_numpy(np.stack([lo, hi])).to(d.device)
         with span("query.scan_index_range", cat="query") as sp:
@@ -699,16 +706,17 @@ class DistQueryProcessor:
 
     def _exec_range(self, plan: QueryPlan, tree, t0: int, t1: int,
                     stats: Optional[QueryStats] = None,
-                    dist: Optional[DistStore] = None) -> DistBatch:
+                    dist: Optional[DistStore] = None, program=None) -> DistBatch:
         d = dist if dist is not None else self.dist
         if plan.mode == "index" and d.has_index:
-            count, ts, cols, truncated, cands = self.scan_index_range(plan, tree, t0, t1, dist=d)
+            count, ts, cols, truncated, cands = self.scan_index_range(plan, tree, t0, t1, dist=d,
+                                                                      program=program)
             if stats is not None:
                 stats.index_keys_scanned += cands
             if not truncated:
                 return DistBatch(count, ts, cols)
             # A slab overflowed: redo this range with the exact scan step.
-        count, ts, cols = self.scan_range(tree, t0, t1, dist=d)
+        count, ts, cols = self.scan_range(tree, t0, t1, dist=d, program=program)
         return DistBatch(count, ts, cols)
 
     def execute(self, tree, t_start: int, t_stop: int, use_index: bool = True,

@@ -33,8 +33,10 @@ import numpy as np
 from . import keypack
 from .filter import FilterProgram, Node, compile_tree
 from .scan import RowBlock
-from ..kernels.combine_scan import combine_scan
-from ..kernels.filter_scan import filter_rows
+from ..kernels.combine_scan import combine_scan, trivial_program
+from ..kernels.filter_scan import filter_rows, program_tensors
+from ..kernels.program_eval import Program
+from .device import resolve_device
 
 MAX_GROUP_SPACE = 1 << 24  # dense-gid cap for the device aggregation
 
@@ -270,17 +272,21 @@ class VersioningIterator(ScanIterator):
 
 class FilterIterator(ScanIterator):
     """The paper's §III-B filter as one stack stage: a compiled predicate
-    program, evaluated by the filter_scan kernel on ``device``."""
+    program, prepared on ``device`` at the first block and evaluated there
+    by the filter_scan kernel for every block."""
 
     def __init__(self, store, tree: Optional[Node] = None,
                  prog: Optional[FilterProgram] = None, device="cuda"):
         self.prog = prog if prog is not None else compile_tree(store, tree)
         self.device = device
+        self._program: Optional[Program] = None
 
     def apply(self, block: RowBlock) -> Optional[RowBlock]:
         if block.n == 0:
             return block
-        mask = filter_rows(block.cols, self.prog, self.device)
+        if self._program is None:
+            self._program = program_tensors(self.prog, resolve_device(self.device))
+        mask = filter_rows(block.cols, self._program)
         if mask.all():
             return block
         if not mask.any():
@@ -306,13 +312,14 @@ class CombinerIterator(ScanIterator):
     """Scan-time aggregation (Accumulo's combiner at scan scope): group rows
     by (group field codes, time bucket) and aggregate server-side, with an
     optional residual filter fused into the same combine_scan launch on
-    ``device``."""
+    ``device``. ``prog`` is a FilterProgram, prepared at the first block,
+    or a Program already prepared on ``device``."""
 
-    def __init__(self, grouping: ResolvedGrouping, prog: Optional[FilterProgram] = None,
-                 device="cuda"):
+    def __init__(self, grouping: ResolvedGrouping, prog=None, device="cuda"):
         self.grouping = grouping
         self.prog = prog  # fused residual filter; None = match all
         self.device = device
+        self._program: Optional[Program] = prog if isinstance(prog, Program) else None
 
     def combine_rows(self, keys: np.ndarray, cols: np.ndarray, shard: int = -1) -> AggregateBlock:
         if len(keys) == 0:
@@ -322,9 +329,13 @@ class CombinerIterator(ScanIterator):
         gids = self.grouping.group_ids(keypack.unrev_ts(rts), cols)
         order = np.argsort(gids, kind="stable")
         values = self.grouping.values(cols)
+        if self._program is None:
+            self._program = program_tensors(
+                self.prog if self.prog is not None else trivial_program(),
+                resolve_device(self.device))
         ukeys, aggs, cnts = combine_scan(
-            gids[order], None if values is None else values[order], cols[order], self.prog,
-            op=self.grouping.spec.op, device=self.device)
+            gids[order], None if values is None else values[order], cols[order], self._program,
+            op=self.grouping.spec.op)
         return AggregateBlock(shard, ukeys, aggs, cnts)
 
     def apply(self, block: RowBlock) -> AggregateBlock:

@@ -41,7 +41,7 @@ from .iterators import (
 from .planner import QueryPlan, plan_query
 from .scan import RowBlock, fetch_rows_by_keys, index_scan, scan_events
 from .store import EventStore
-from ..kernels.filter_scan import filter_rows
+from ..kernels.filter_scan import filter_rows, program_tensors
 from ..kernels.merge_intersect import intersect_sorted, union_sorted
 from ..obs import span
 
@@ -88,12 +88,13 @@ class QueryProcessor:
                        shards: Optional[Sequence[int]] = None, prog=None,
                        combiner: Optional[CombinerIterator] = None) -> Iterator:
         """Run one time range of a planned query. ``prog``: the residual
-        filter program, compiled once per query. ``combiner``: the stack's
-        terminal iterator — rows become per-group aggregates."""
+        filter program, prepared on the device once per query (a Program).
+        ``combiner``: the stack's terminal iterator — rows become per-group
+        aggregates."""
         store = self.store
         residual_trivial = isinstance(plan.residual, TrueNode) or plan.residual is None
         if prog is None and not residual_trivial:
-            prog = compile_tree(store, plan.residual)
+            prog = program_tensors(compile_tree(store, plan.residual), self.device)
         if plan.mode == "filter":
             # Every shard's block goes through one kernel launch.
             blocks = list(scan_events(store, t0, t1, shards))
@@ -109,7 +110,7 @@ class QueryProcessor:
             if residual_trivial:
                 yield from blocks
                 return
-            mask_all = filter_rows(np.concatenate([b.cols for b in blocks]), prog, self.device)
+            mask_all = filter_rows(np.concatenate([b.cols for b in blocks]), prog)
             off = 0
             for blk in blocks:
                 mask = mask_all[off: off + blk.n]
@@ -152,7 +153,7 @@ class QueryProcessor:
                 fetched.append(blk)
                 continue
             if prog is not None:
-                mask = filter_rows(blk.cols, prog, self.device)
+                mask = filter_rows(blk.cols, prog)
                 if not mask.any():
                     continue
                 blk = RowBlock(blk.shard, blk.keys[mask], blk.cols[mask])
@@ -224,7 +225,10 @@ class HostQueryRun:
         # Provably empty: no scans and no batching loop.
         self._empty = self.plan.mode == "empty"
         residual_trivial = isinstance(self.plan.residual, TrueNode) or self.plan.residual is None
-        self.prog = None if residual_trivial else compile_tree(store, self.plan.residual)
+        # The residual filter, prepared on the device once for every batch
+        # (and for the combiner's fused launches).
+        self.prog = (None if residual_trivial
+                     else program_tensors(compile_tree(store, self.plan.residual), qp.device))
         self.combiner = None
         if aggregate is not None:
             grouping = _grouping or resolve_grouping(store, aggregate, t_start, t_stop)

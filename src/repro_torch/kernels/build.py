@@ -5,7 +5,8 @@ own ``nvcc`` process (all started together; the shared ``csrc/*.cuh``
 headers are included by them), and the objects are linked
 into one shared library with a plain C interface under the checkout's
 ``build/`` directory. The library is loaded with ``ctypes``; every entry
-point takes ``c_void_p`` for pointers and the stream, and returns
+point takes ``c_void_p`` for device pointers and the stream (ctypes arrays
+for the few small tables passed from host memory), and a launcher returns
 ``cudaGetLastError()`` as an int.
 
 The library's file name carries a hash of the sources and headers, so an edited
@@ -32,6 +33,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_optin: Optional[int] = None
 # What the last build printed (ptxas register and shared-memory lines);
 # chip_smoke.py reports it.
 build_log: List[str] = []
@@ -91,29 +93,47 @@ def load_library() -> ctypes.CDLL:
             _build(sources, target)
         lib = ctypes.CDLL(str(target))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        vpp, llp = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
         for name in ("merge_ranks_i32", "merge_ranks_i64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, llp, vp, vp, ll, i, ll, vp]
+            fn.restype = i
+        for name in ("merge_ranks_search_i32", "merge_ranks_search_i64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, vp, ll, i, ll, vp]
             fn.restype = i
-        lib.filter_scan_rows.argtypes = [vp, ll, i, vp, i, vp, i, i, vp, vp]
-        lib.filter_scan_rows.restype = i
+        lib.filter_scan_levels.argtypes = [vpp, vpp, llp, i, i, vp, i, i, i, vp]
+        lib.filter_scan_levels.restype = i
         for name in ("member_mask_i32", "member_mask_i64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, ll, ll, ll, vp, vp]
             fn.restype = i
-        lib.combine_scan_tiles.argtypes = [vp, vp, vp, ll, i, vp, i, vp, i, i, i,
+        lib.combine_scan_tiles.argtypes = [vp, vp, vp, ll, i, vp, i, i, i, i,
                                            vp, vp, vp, vp, vp]
         lib.combine_scan_tiles.restype = i
         for name in ("aggregate_combine_i32", "aggregate_combine_i64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp]
             fn.restype = i
-        for name in ("combine_scan_tile_rows", "aggregate_combine_tile_rows"):
+        for name in ("combine_scan_tile_rows", "aggregate_combine_tile_rows",
+                     "combine_scan_accumulator_bytes", "shared_optin_bytes"):
             fn = getattr(lib, name)
             fn.argtypes = []
             fn.restype = i
         _lib = lib
         return lib
+
+
+def shared_optin_bytes() -> int:
+    """Bytes of shared memory a block of the current card may opt in to
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin), read once."""
+    global _optin
+    if _optin is None:
+        got = load_library().shared_optin_bytes()
+        if got < 0:
+            raise RuntimeError("cannot read the card's shared memory per block")
+        _optin = got
+    return _optin
 
 
 def check(err: int, what: str) -> None:

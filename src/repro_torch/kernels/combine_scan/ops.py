@@ -16,9 +16,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..build import check, load_library
-from ..filter_scan.ops import MAX_SHARED_BYTES, program_tensors
-from ..program_eval import OP_PUSH_TRUE
+from ..build import check, load_library, shared_optin_bytes
+from ..filter_scan.ops import program_tensors
+from ..program_eval import OP_PUSH_TRUE, Program, as_program
 from .ref import combine_scan_ref
 
 # Kernel launches since the last reset (chip_smoke.py zeroes it before a
@@ -42,13 +42,22 @@ def trivial_program():
     )
 
 
-def combine_segments(keys, vals, cols, opcodes, arg0, arg1, codesets, op: str):
+def combine_segments(keys, vals, cols, program, *rest):
     """keys int64 (n,) ascending; vals int32 (n,), or None for op 'count';
-    cols int32 (n, F); the padded program as int32 tensors on the same
-    device. Returns (heads bool (n,), int64 (n,) aggregates and int32 (n,)
-    match counts at the heads; the identity and 0 elsewhere), as
-    combine_scan_ref does. CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
+    cols int32 (n, F); then a Program on the same device and the op —
+    ``combine_segments(keys, vals, cols, program, op)`` — or the original
+    form's four int32 tensors and the op, which a CUDA call prepares anew.
+    Returns (heads bool (n,), int64 (n,) aggregates and int32 (n,) match
+    counts at the heads; the identity and 0 elsewhere), as combine_scan_ref
+    does. CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
+    if len(rest) == 1:
+        op = rest[0]
+    elif len(rest) == 4:
+        program, op = (program, *rest[:3]), rest[3]
+    else:
+        raise TypeError("combine_segments takes (keys, vals, cols, program, op) or "
+                        "(keys, vals, cols, opcodes, arg0, arg1, codesets, op)")
     if op not in OPS:
         raise ValueError(f"unknown combiner op {op!r}")
     n = keys.shape[0]
@@ -62,19 +71,21 @@ def combine_segments(keys, vals, cols, opcodes, arg0, arg1, codesets, op: str):
         raise ValueError(f"keys must be int64 (n,), got {keys.dtype} {tuple(keys.shape)}")
     if cols.dtype != torch.int32 or cols.dim() != 2 or cols.shape[0] != n:
         raise ValueError(f"cols must be int32 ({n}, F), got {cols.dtype} {tuple(cols.shape)}")
-    for name, t in (("vals", vals), ("cols", cols), ("opcodes", opcodes), ("arg0", arg0),
-                    ("arg1", arg1), ("codesets", codesets)):
+    named = [("vals", vals), ("cols", cols)]
+    if isinstance(program, Program):
+        named.append(("program", program.words))
+    else:
+        named.extend(zip(("opcodes", "arg0", "arg1", "codesets"), program))
+    for name, t in named:
         if t.device != keys.device:
             raise ValueError(f"{name} is on {t.device}, keys on {keys.device}")
     if keys.device.type == "cpu":
-        return combine_scan_ref(keys, vals, cols, opcodes, arg0, arg1, codesets, op)
+        return combine_scan_ref(keys, vals, cols, *program, op)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    p = opcodes.shape[0]
-    s, m = codesets.shape
-    if (3 * p + s * m) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"program ({p} ops) and codesets ({s}x{m}) exceed the kernel's "
-                         f"{MAX_SHARED_BYTES} bytes of shared memory")
+    program = as_program(program, keys.device)
+    if program.max_field >= cols.shape[1]:
+        raise ValueError(f"the program reads field {program.max_field} of {cols.shape[1]}")
     dev = keys.device
     heads = torch.empty(n, dtype=torch.bool, device=dev)
     aggs = torch.empty(n, dtype=torch.int64, device=dev)
@@ -83,16 +94,15 @@ def combine_segments(keys, vals, cols, opcodes, arg0, arg1, codesets, op: str):
         return heads, aggs, cnts
     keys, cols = keys.contiguous(), cols.contiguous()
     vals = vals.contiguous()
-    program = torch.cat([opcodes, arg0, arg1]).contiguous()
-    codesets = codesets.contiguous()
     lib = load_library()
     # Scratch: each tile's last true head, for the kernel's stitch pass.
     last = torch.empty(-(-n // lib.combine_scan_tile_rows()), dtype=torch.int64, device=dev)
+    staged = program.staged_words(shared_optin_bytes() - lib.combine_scan_accumulator_bytes())
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.combine_scan_tiles(
         keys.data_ptr(), vals.data_ptr() if vals.numel() else None, cols.data_ptr(), n,
-        cols.shape[1], program.data_ptr(), p, codesets.data_ptr(), s, m, OPS[op],
-        heads.data_ptr(), aggs.data_ptr(), cnts.data_ptr(), last.data_ptr(), stream),
+        cols.shape[1], program.words.data_ptr(), program.n_ops, program.header_words, staged,
+        OPS[op], heads.data_ptr(), aggs.data_ptr(), cnts.data_ptr(), last.data_ptr(), stream),
         "combine_scan")
     global launches
     launches += 1
@@ -107,8 +117,9 @@ def combine_scan(group_keys: np.ndarray, values: Optional[np.ndarray], cols: np.
 
     group_keys int64 (n,) ascending (equal keys = one group); values int32
     (n,), ignored for op 'count' (may be None); cols int32 (n, f) the
-    filter's dictionary codes; prog the residual FilterProgram, or None
-    to match every row; op 'count' | 'sum' | 'min' | 'max'.
+    filter's dictionary codes; prog the residual FilterProgram, or a
+    Program prepared once per query on ``device`` (its device wins), or
+    None to match every row; op 'count' | 'sum' | 'min' | 'max'.
 
     Returns numpy (group keys int64, aggregates int64, match counts int32)
     for the groups with at least one matching row. Sums accumulate in
@@ -124,14 +135,17 @@ def combine_scan(group_keys: np.ndarray, values: Optional[np.ndarray], cols: np.
         return np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int32)
     from ...core.device import resolve_device  # core imports this package
 
-    dev = resolve_device(device)
-    program = program_tensors(prog if prog is not None else trivial_program(), dev)
+    if isinstance(prog, Program):
+        dev, program = prog.device, prog
+    else:
+        dev = resolve_device(device)
+        program = program_tensors(prog if prog is not None else trivial_program(), dev)
     vals = None
     if op != "count":
         vals = torch.from_numpy(np.ascontiguousarray(values, dtype=np.int32)).to(dev)
     keys = torch.from_numpy(group_keys).to(dev)
     heads, aggs, cnts = combine_segments(
         keys, vals, torch.from_numpy(np.ascontiguousarray(cols, dtype=np.int32)).to(dev),
-        *program, op)
+        program, op)
     keep = heads & (cnts > 0)
     return (keys[keep].cpu().numpy(), aggs[keep].cpu().numpy(), cnts[keep].cpu().numpy())

@@ -16,8 +16,8 @@ IDENTITY = {"count": 0, "sum": 0, "min": I32_MAX, "max": I32_MIN}
 
 def combine_scan_ref(keys, vals, cols, opcodes, arg0, arg1, codesets, op: str):
     """keys int64 (n,) ascending; vals int32 (n,) (unread for op
-    'count'); cols int32 (n, F); the padded program as int32 tensors; op
-    'count' | 'sum' | 'min' | 'max'. Returns (heads bool (n,), int64 (n,)
+    'count'); cols int32 (n, F); the program's original form as int32
+    tensors; op 'count' | 'sum' | 'min' | 'max'. Returns (heads bool (n,), int64 (n,)
     aggregate of the matching rows of each segment at its head, int32 (n,)
     matching rows of each segment at its head); the identity and 0
     elsewhere. Sums accumulate in int64, min and max in int32."""

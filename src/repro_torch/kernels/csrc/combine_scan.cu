@@ -16,9 +16,10 @@
 // Design: one block per tile of kTile rows, one row per thread. The TPU
 // kernel split the int64 keys into (hi, lo) int32 lanes and padded the
 // fields to 128 lanes; here keys are compared as int64 and the fields stay
-// unpadded. The program and codesets are staged in shared memory
-// (program_eval.cuh, shared with filter_scan); each thread evaluates its
-// row. Head flags compare against the previous row in device memory, so a
+// unpadded. The prepared program is staged in shared memory after the
+// tile's accumulators while it fits, else its header only, with the codes
+// searched in global memory (program_eval.cuh, shared with filter_scan);
+// each thread evaluates its row. Head flags compare against the previous row in device memory, so a
 // tile's first row is a head only when its key changes — except that every
 // tile opens its own segment at its first row. Local segment ids come from
 // a block-wide scan of the heads; each warp folds its lanes per segment by
@@ -46,6 +47,9 @@ namespace {
 
 constexpr int kTile = 512;
 constexpr int kWarps = kTile / 32;
+// Dynamic shared memory before the program: kTile int64 accumulators and
+// kTile int32 counts.
+constexpr int kAccBytes = kTile * (int)(sizeof(long long) + sizeof(int32_t));
 enum : int { kSum = 0, kMin = 1, kMax = 2, kCount = 3 };
 
 __device__ __forceinline__ long long identity(int op) {
@@ -55,13 +59,12 @@ __device__ __forceinline__ long long identity(int op) {
 __global__ void __launch_bounds__(kTile)
 combine_scan_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ vals,
                     const int32_t* __restrict__ cols, long long n, int f,
-                    const int32_t* __restrict__ program, int p,
-                    const int32_t* __restrict__ codesets, int s, int m, int op,
-                    bool* __restrict__ heads, int64_t* __restrict__ aggs,
+                    const int32_t* __restrict__ words, int p, int header_words,
+                    int staged, int op, bool* __restrict__ heads, int64_t* __restrict__ aggs,
                     int32_t* __restrict__ cnts, int64_t* __restrict__ tile_last_head) {
   extern __shared__ long long smem_acc[];  // kTile int64 accumulators, then
   int32_t* acc_cnt = (int32_t*)(smem_acc + kTile);  // kTile int32 counts, then
-  int32_t* prog = acc_cnt + kTile;                  // the program and codesets
+  int32_t* prog = acc_cnt + kTile;                  // the staged program words
   __shared__ int warp_total[kWarps];
   __shared__ int last_head;
 
@@ -70,7 +73,7 @@ combine_scan_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict_
   const long long row = row0 + t;
   const bool live = row < n;
   const long long ident = identity(op);
-  program_eval::stage_program(prog, program, p, codesets, s, m);
+  program_eval::stage_words(prog, words, staged);
   smem_acc[t] = ident;
   acc_cnt[t] = 0;
   if (t == 0) last_head = -1;
@@ -81,7 +84,8 @@ combine_scan_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict_
   if (live) {
     const int64_t key = keys[row];
     true_head = row == 0 || keys[row - 1] != key;
-    hit = program_eval::eval_row(cols + row * f, prog, p, m);
+    hit = program_eval::eval_row(
+        cols + row * f, program_eval::program_view(prog, words, p, header_words, staged));
   }
   const bool head = t == 0 || true_head;
   const int seg = segments::block_segment_id<kWarps>(head, warp_total);
@@ -147,23 +151,21 @@ combine_scan_stitch(const int64_t* __restrict__ keys, long long tiles, int op,
 
 }  // namespace
 
+// The prepared program's words on the device, of which a block stages the
+// first `staged` in shared memory after its accumulators.
 extern "C" int combine_scan_tiles(const void* keys, const void* vals, const void* cols,
-                                  long long n, int f, const void* program, int p,
-                                  const void* codesets, int s, int m, int op, void* heads,
+                                  long long n, int f, const void* words, int p,
+                                  int header_words, int staged, int op, void* heads,
                                   void* aggs, void* cnts, void* tile_last_head, void* stream) {
   const long long blocks = (n + kTile - 1) / kTile;
-  const size_t smem = (size_t)kTile * (sizeof(long long) + sizeof(int32_t)) +
-                      (size_t)program_eval::program_words(p, s, m) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        combine_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const size_t smem = (size_t)kAccBytes + (size_t)staged * sizeof(int32_t);
+  cudaError_t err = program_eval::allow_shared(combine_scan_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   combine_scan_kernel<<<(unsigned)blocks, kTile, smem, (cudaStream_t)stream>>>(
       (const int64_t*)keys, (const int32_t*)vals, (const int32_t*)cols, n, f,
-      (const int32_t*)program, p, (const int32_t*)codesets, s, m, op, (bool*)heads,
-      (int64_t*)aggs, (int32_t*)cnts, (int64_t*)tile_last_head);
-  cudaError_t err = cudaGetLastError();
+      (const int32_t*)words, p, header_words, staged, op, (bool*)heads, (int64_t*)aggs,
+      (int32_t*)cnts, (int64_t*)tile_last_head);
+  err = cudaGetLastError();
   if (err != cudaSuccess || blocks < 2) return (int)err;
   combine_scan_stitch<<<1, kStitch, 0, (cudaStream_t)stream>>>(
       (const int64_t*)keys, blocks, op, (const int64_t*)tile_last_head, (bool*)heads,
@@ -172,3 +174,9 @@ extern "C" int combine_scan_tiles(const void* keys, const void* vals, const void
 }
 
 extern "C" int combine_scan_tile_rows() { return kTile; }
+
+// Shared memory a block takes besides the program: the accumulators and
+// the static scratch (warp totals and the last head).
+extern "C" int combine_scan_accumulator_bytes() {
+  return kAccBytes + kWarps * (int)sizeof(int) + (int)sizeof(int);
+}

@@ -1,34 +1,39 @@
-"""The filter kernel's wrapper and the program padding it takes.
+"""The filter kernel's wrappers and the program preparation they take.
 
-``filter_scan`` evaluates a compiled postfix predicate program over rows
-of dictionary codes: the CUDA kernel (csrc/filter_scan.cu) for CUDA
-tensors, its plain version (ref.py, over kernels/program_eval.py) for CPU
-tensors. ``filter_rows`` runs it on numpy rows for the host query path.
+``filter_scan_levels`` evaluates a prepared predicate program
+(kernels/program_eval.py) over the rows of several blocks of dictionary
+codes — every LSM level of a step — in one launch of the CUDA kernel
+(csrc/filter_scan.cu) for CUDA tensors, and level by level through its
+plain version (ref.py) for CPU tensors. ``filter_scan`` is the one-block
+form; it also takes the original form's four tensors, and then prepares
+the program on every call. ``filter_rows`` runs it on numpy rows for the
+host query path.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..build import check, load_library
+from ..build import check, load_library, shared_optin_bytes
 from ..common import pow2
-from ..program_eval import OP_NOP
+from ..program_eval import OP_NOP, Program, as_program, prepare_program
 from .ref import filter_scan_ref
 
 # Kernel launches since the last reset (chip_smoke.py zeroes it before the
 # main path and reads it after).
 launches = 0
 
-# The kernel stages the program and codesets in shared memory; 48 KiB is
-# what a launch may take without opting in to more.
-MAX_SHARED_BYTES = 48 * 1024
+# Blocks one launch takes (csrc/filter_scan.cu, kMaxLevels).
+MAX_LEVELS = 8
 
 
 def pad_program(prog) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Pad a FilterProgram's length to a power of two and its codeset
-    table to power-of-two rows and columns (-1 padded)."""
+    table to power-of-two rows and columns (-1 padded), as the
+    reference's Pallas kernel takes it."""
     p = pow2(max(prog.length, 1))
     opc = np.full(p, OP_NOP, np.int32)
     a0 = np.zeros(p, np.int32)
@@ -42,65 +47,77 @@ def pad_program(prog) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     return opc, a0, a1, cs
 
 
-def program_tensors(prog, device) -> Tuple[torch.Tensor, ...]:
-    """A FilterProgram, padded, as the four int32 tensors (opcodes, arg0,
-    arg1, codesets) on ``device``, copied in one transfer."""
-    opc, a0, a1, cs = pad_program(prog)
-    flat = torch.from_numpy(np.concatenate([opc, a0, a1, cs.ravel()])).to(device)
-    p = len(opc)
-    return flat[:p], flat[p:2 * p], flat[2 * p:3 * p], flat[3 * p:].view(cs.shape)
+def program_tensors(prog, device) -> Program:
+    """A FilterProgram staged on ``device`` in one transfer (see
+    program_eval.prepare_program). Prepare it once per query."""
+    return prepare_program(prog.opcodes, prog.arg0, prog.arg1, prog.codesets, device)
 
 
-def filter_scan(cols, opcodes, arg0, arg1, codesets) -> torch.Tensor:
-    """cols (..., F) int32 codes; opcodes/arg0/arg1 (P,) int32 and codesets
-    (S, M) int32 on the same device. Returns the bool (...) match mask.
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    for name, t in (("cols", cols), ("opcodes", opcodes), ("arg0", arg0),
-                    ("arg1", arg1), ("codesets", codesets)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if t.device != cols.device:
-            raise ValueError(f"{name} is on {t.device}, cols on {cols.device}")
-    if cols.device.type == "cpu":
-        return filter_scan_ref(cols, opcodes, arg0, arg1, codesets)
-    if cols.device.type != "cuda":
-        raise ValueError(f"unsupported device {cols.device}")
-    p = opcodes.shape[0]
-    if arg0.shape != (p,) or arg1.shape != (p,) or codesets.dim() != 2:
-        raise ValueError("program arrays must be (P,) and codesets (S, M)")
-    s, m = codesets.shape
-    if (3 * p + s * m) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"program ({p} ops) and codesets ({s}x{m}) exceed the kernel's "
-            f"{MAX_SHARED_BYTES} bytes of shared memory"
-        )
-    lead, f = cols.shape[:-1], cols.shape[-1]
-    rows = cols.reshape(-1, f).contiguous()
-    program = torch.cat([opcodes, arg0, arg1]).contiguous()
-    codesets = codesets.contiguous()
-    out = torch.empty(rows.shape[0], dtype=torch.bool, device=cols.device)
-    if rows.shape[0] == 0:
-        return out.reshape(lead)
-    lib = load_library()
-    stream = torch.cuda.current_stream(cols.device).cuda_stream
-    check(
-        lib.filter_scan_rows(
-            rows.data_ptr(), rows.shape[0], f, program.data_ptr(), p,
-            codesets.data_ptr(), s, m, out.data_ptr(), stream,
-        ),
-        "filter_scan",
-    )
-    global launches
-    launches += 1
-    return out.reshape(lead)
+def filter_scan_levels(levels: Sequence[torch.Tensor], program) -> List[torch.Tensor]:
+    """levels: int32 (..., F) code blocks on one device, F the same for
+    all; program: a Program on that device (or the original form's four
+    tensors). Returns one bool (...) match mask per level. CPU tensors run
+    the plain version level by level; CUDA tensors launch the kernel once
+    for all levels."""
+    levels = list(levels)
+    if not levels:
+        return []
+    dev = levels[0].device
+    f = levels[0].shape[-1]
+    for i, cols in enumerate(levels):
+        if cols.dtype != torch.int32:
+            raise TypeError(f"cols must be int32, got {cols.dtype}")
+        if cols.device != dev or cols.shape[-1] != f:
+            raise ValueError(f"level {i} is {tuple(cols.shape)} on {cols.device}; "
+                             f"level 0 is (..., {f}) on {dev}")
+    if isinstance(program, Program) and program.device != dev:
+        raise ValueError(f"program is on {program.device}, cols on {dev}")
+    if dev.type == "cpu":
+        opcodes, arg0, arg1, codesets = program
+        return [filter_scan_ref(cols, opcodes, arg0, arg1, codesets) for cols in levels]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"{len(levels)} levels exceed the kernel's {MAX_LEVELS}")
+    program = as_program(program, dev)
+    if program.max_field >= f:
+        raise ValueError(f"the program reads field {program.max_field} of {f}")
+    rows = [cols.reshape(-1, f).contiguous() for cols in levels]
+    sizes = [r.shape[0] for r in rows]
+    flat = torch.empty(sum(sizes), dtype=torch.bool, device=dev)
+    outs = list(flat.split(sizes))
+    if flat.numel():
+        lib = load_library()
+        n = len(rows)
+        check(lib.filter_scan_levels(
+            (ctypes.c_void_p * n)(*(r.data_ptr() for r in rows)),
+            (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs)),
+            (ctypes.c_longlong * n)(*sizes), n, f, program.words.data_ptr(),
+            program.n_ops, program.header_words, program.staged_words(shared_optin_bytes()),
+            torch.cuda.current_stream(dev).cuda_stream), "filter_scan")
+        global launches
+        launches += 1
+    return [o.view(cols.shape[:-1]) for o, cols in zip(outs, levels)]
 
 
-def filter_rows(cols: np.ndarray, prog, device="cuda") -> np.ndarray:
-    """The host query path's filter: a FilterProgram over numpy (n, F)
-    int32 codes, evaluated by filter_scan on ``device``. Returns the numpy
-    bool (n,) mask."""
-    from ...core.device import resolve_device  # core imports this package
+def filter_scan(cols, program, arg0=None, arg1=None, codesets=None) -> torch.Tensor:
+    """cols (..., F) int32 codes; program a Program on the same device,
+    or the original form as four int32 tensors (opcodes, arg0, arg1 (P,)
+    and codesets (S, M)), which a CUDA call prepares anew each time.
+    Returns the bool (...) match mask."""
+    if arg0 is not None:
+        program = (program, arg0, arg1, codesets)
+        for name, t in zip(("opcodes", "arg0", "arg1", "codesets"), program):
+            if t.dtype != torch.int32:
+                raise TypeError(f"{name} must be int32, got {t.dtype}")
+            if t.device != cols.device:
+                raise ValueError(f"{name} is on {t.device}, cols on {cols.device}")
+    return filter_scan_levels([cols], program)[0]
 
-    dev = resolve_device(device)
-    rows = torch.from_numpy(np.ascontiguousarray(cols, dtype=np.int32)).to(dev)
-    return filter_scan(rows, *program_tensors(prog, dev)).cpu().numpy()
+
+def filter_rows(cols: np.ndarray, program: Program) -> np.ndarray:
+    """The host query path's filter: a prepared Program over numpy (n, F)
+    int32 codes, evaluated on the program's device. Returns the numpy bool
+    (n,) mask."""
+    rows = torch.from_numpy(np.ascontiguousarray(cols, dtype=np.int32)).to(program.device)
+    return filter_scan(rows, program).cpu().numpy()

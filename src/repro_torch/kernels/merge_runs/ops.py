@@ -15,7 +15,7 @@ and payload by rank:
 """
 from __future__ import annotations
 
-import functools
+import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -28,15 +28,11 @@ from .ref import merge_ranks_ref
 # main path and reads it after).
 launches = 0
 
-# The kernel stages the run bounds in shared memory (csrc/merge_runs.cu).
+# Runs one launch takes: the kernel's parameter block holds the bounds and
+# every pair of runs (csrc/merge_runs.cu), and its grid has one row per
+# batch.
 MAX_RUNS = 32
-
-
-@functools.lru_cache(maxsize=64)
-def _device_bounds(bounds: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """The run bounds as an int64 tensor on the device, made once per
-    layout (the plane merges a handful of layouts)."""
-    return torch.tensor(bounds, dtype=torch.int64, device=device)
+MAX_BATCHES = 65535
 
 
 def merge_ranks(keys: torch.Tensor, bounds: Sequence[int], lengths: torch.Tensor) -> torch.Tensor:
@@ -67,8 +63,9 @@ def merge_ranks(keys: torch.Tensor, bounds: Sequence[int], lengths: torch.Tensor
         return merge_ranks_ref(keys, bounds, lengths)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    if k > MAX_RUNS:
-        raise ValueError(f"{k} runs exceed the kernel's {MAX_RUNS}")
+    if k > MAX_RUNS or b > MAX_BATCHES:
+        raise ValueError(f"{k} runs of {b} batches exceed the kernel's {MAX_RUNS} "
+                         f"and {MAX_BATCHES}")
     if n >= 2**31:
         raise ValueError(f"N = {n} does not fit int32 ranks")
     keys = keys.contiguous()
@@ -78,10 +75,9 @@ def merge_ranks(keys: torch.Tensor, bounds: Sequence[int], lengths: torch.Tensor
         return out
     lib = load_library()
     fn = lib.merge_ranks_i32 if keys.dtype == torch.int32 else lib.merge_ranks_i64
-    dev_bounds = _device_bounds(bounds, keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    check(fn(keys.data_ptr(), dev_bounds.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, k, n, stream), "merge_ranks")
+    check(fn(keys.data_ptr(), (ctypes.c_longlong * (k + 1))(*bounds), lengths.data_ptr(),
+             out.data_ptr(), b, k, n, stream), "merge_ranks")
     global launches
     launches += 1
     return out

@@ -16,7 +16,8 @@ from repro_torch.core.dist_ingest import DistBatchWriter, DistIngestPlane
 from repro_torch.core.dist_query import DistQueryProcessor, QueryStats
 from repro_torch.core.schema import web_proxy_schema
 from repro_torch.core.store import EventStore
-from repro_torch.kernels.filter_scan import filter_scan, ops as filter_ops, pad_program
+from repro_torch.kernels.filter_scan import filter_scan, filter_scan_levels, pad_program
+from repro_torch.kernels.filter_scan import ops as filter_ops
 from repro_torch.kernels.merge_intersect import member_mask, member_mask_keys
 from repro_torch.kernels.merge_intersect import ops as intersect_ops
 from repro_torch.kernels.merge_runs import (
@@ -76,6 +77,33 @@ def test_merge_ranks_kernel_matches_plain_version(cuda, dtype, shape):
     assert merge_ops.launches == before + 1
     assert got.dtype == torch.int32 and got.device == keys.device
     assert torch.equal(got, merge_ranks_ref(keys, bounds, lengths))
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_merge_ranks_tiles_split_runs_of_equal_keys(cuda, k):
+    # Few distinct keys, so every tile boundary (2,048 outputs of a pair)
+    # falls inside a run of equal keys, at capacities that are not
+    # multiples of the tile, with empty, full and partly live runs.
+    rng = np.random.default_rng(100 + k)
+    caps = rng.integers(0, 9000, k).tolist()
+    for dtype in (np.int32, np.int64):
+        parts, lens = [], []
+        for o, cap in enumerate(caps):
+            n = rng.integers(0, cap + 1, 3)
+            n[o % 3] = cap
+            run = np.full((3, cap), -5, dtype)
+            for b in range(3):
+                run[b, :n[b]] = np.sort(rng.integers(0, 4, n[b]))
+            parts.append(torch.from_numpy(run))
+            lens.append(torch.from_numpy(n.astype(np.int32)))
+        keys = torch.cat(parts, dim=1).to(cuda)
+        lengths = torch.stack(lens, dim=1).to(cuda)
+        bounds = np.concatenate([[0], np.cumsum(caps)]).tolist()
+        before = merge_ops.launches
+        got = merge_ranks(keys, bounds, lengths)
+        torch.cuda.synchronize()
+        assert merge_ops.launches == before + (1 if keys.numel() else 0)
+        assert torch.equal(got, merge_ranks_ref(keys, bounds, lengths)), (k, dtype)
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
@@ -146,12 +174,112 @@ def test_filter_scan_kernel_matches_plain_version(cuda, lead):
         assert got.dtype == torch.bool and torch.equal(got, want)
 
 
-def test_filter_scan_rejects_a_program_too_big_for_shared_memory(cuda):
+def test_filter_scan_runs_a_program_past_48_kib_of_shared_memory(cuda):
+    # 64 x 256 codesets (65,632 bytes with the program) once raised past the
+    # 48 KiB a launch gets without opting in; now it runs and agrees.
     opc = torch.zeros(8, dtype=torch.int32, device=cuda)
     sets = torch.full((64, 256), -1, dtype=torch.int32, device=cuda)
     cols = torch.zeros((10, 12), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        filter_scan(cols, opc, opc, opc, sets)
+    got = filter_scan(cols, opc, opc, opc, sets)
+    assert torch.equal(got, program_eval_rows(cols, opc, opc, opc, sets))
+    # The same table with a live last row, read by a PUSH_IN.
+    sets[63, :200] = torch.arange(0, 400, 2, dtype=torch.int32, device=cuda)
+    opc[0] = 2
+    a0 = torch.zeros(8, dtype=torch.int32, device=cuda)
+    a1 = torch.full((8,), 63, dtype=torch.int32, device=cuda)
+    cols[:, 0] = torch.arange(10, dtype=torch.int32, device=cuda) * 41
+    got = filter_scan(cols, opc, a0, a1, sets)
+    want = program_eval_rows(cols, opc, a0, a1, sets)
+    assert torch.equal(got, want) and int(want.sum()) == 5
+
+
+def big_in_rows(rng, n_codes, n_rows, n_fields=12):
+    """A PUSH_IN over n_codes distinct codes (unsorted, -1 padded to a
+    power of two) AND an Eq, and rows about half of whose field-3 codes are
+    in the set, some negative."""
+    from repro_torch.core.filter import FilterProgram
+
+    universe = rng.permutation(4 * n_codes)
+    codes = universe[:n_codes].astype(np.int32)
+    cs = np.full((2, 1 << (n_codes - 1).bit_length()), -1, np.int32)
+    cs[1, :n_codes] = codes
+    cs[0, :3] = [5, 1, 3]
+    prog = FilterProgram(opcodes=np.asarray([2, 1, 2, 6, 4, 5], np.int32),
+                         arg0=np.asarray([3, 4, 5, 0, 0, 0], np.int32),
+                         arg1=np.asarray([1, 7, 0, 0, 0, 0], np.int32),
+                         codesets=cs, max_depth=3)
+    cols = rng.integers(0, 9, (n_rows, n_fields)).astype(np.int32)
+    cols[:, 3] = rng.choice(universe[: 2 * n_codes], n_rows)
+    cols[::97, 3] = -1
+    return prog, cols
+
+
+@pytest.mark.parametrize("n_codes,shared", [(8193, False), (30_000, True), (65536, False),
+                                            (1_000_000, False)])
+def test_filter_scan_and_combine_scan_take_big_in_sets(cuda, monkeypatch, n_codes, shared):
+    """shared: stage the program whole in the opt-in shared memory (120 KB
+    at 30,000 codes), past the default threshold."""
+    from repro_torch.kernels import program_eval
+
+    if shared:
+        monkeypatch.setattr(program_eval, "SHARED_PROGRAM_BYTES", 227 * 1024)
+    rng = np.random.default_rng(n_codes)
+    prog, cols = big_in_rows(rng, n_codes, 300_000)
+    program = program_tensors(prog, cuda)
+    assert program.codesets.numel() * 4 > 48 * 1024  # the padded table of old
+    rows = torch.from_numpy(cols).to(cuda)
+    before = filter_ops.launches
+    got = filter_scan(rows, program)
+    torch.cuda.synchronize()
+    assert filter_ops.launches == before + 1
+    want = program_eval_rows(rows, *program)
+    assert torch.equal(got, want) and 0 < int(want.sum()) < len(cols)
+    gids = torch.from_numpy(np.sort(rng.integers(0, 5000, len(cols)))).to(cuda)
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, len(cols)).astype(np.int32)).to(cuda)
+    for op in ("count", "sum", "min", "max"):
+        got = combine_segments(gids, vals, rows, program, op)
+        want = combine_scan_ref(gids, vals, rows, *program, op)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), op
+
+
+def test_filter_scan_levels_launches_once_for_every_level(cuda):
+    rng = np.random.default_rng(17)
+    prog, _ = big_in_rows(rng, 30_000, 1)
+    program = program_tensors(prog, cuda)
+    levels = [torch.from_numpy(rng.integers(0, 60_000, shape).astype(np.int32)).to(cuda)
+              for shape in ((4, 1000, 12), (4, 3, 257, 12), (4, 0, 12), (4, 300, 12))]
+    levels[1] = levels[1][:, :, :200]  # a non-contiguous slice
+    before = filter_ops.launches
+    masks = filter_scan_levels(levels, program)
+    torch.cuda.synchronize()
+    assert filter_ops.launches == before + 1
+    for cols, mask in zip(levels, masks):
+        assert mask.shape == cols.shape[:-1] and mask.dtype == torch.bool
+        want = program_eval_rows(cols.reshape(-1, 12), *program).reshape(cols.shape[:-1])
+        assert torch.equal(mask, want)
+
+
+def test_a_scan_step_launches_filter_scan_once(cuda):
+    from repro_torch.core import dist_query
+
+    store = EventStore(web_proxy_schema())
+    rng = np.random.default_rng(18)
+    n = 3000
+    ts = np.sort(rng.integers(0, 14400, n))
+    vals = {"domain": rng.choice(["a.com", "b.com"], n).tolist()}
+    plane = DistIngestPlane.for_store(store, capacity=2048, n_tablets=4, mem_rows=128,
+                                      max_runs=2, append_rows=64, device=cuda)
+    w = DistBatchWriter(store, plane, batch_rows=700, writer_id=4)
+    w.add(ts, vals)
+    w.close()
+    dq = DistQueryProcessor(store, plane, device=cuda)
+    d = dq._sync()
+    program = dq._program(pf.Eq("domain", "a.com"), cuda)
+    before = filter_ops.launches
+    total, _, _ = dist_query.scan_step(d, program, 0, 2**31 - 2)
+    assert filter_ops.launches == before + 1
+    assert int(total) == int((np.asarray(vals["domain"]) == "a.com").sum())
 
 
 def test_card_plane_matches_cpu_plane(cuda):
