@@ -53,8 +53,9 @@ no result line):
                 combine_scan, filter_scan and merge_intersect must launch.
              Every total must equal the count in the generated events and
              a plain-version scan of the same snapshot on the card.
-             aggregate_combine must launch on path 1, once per major and
-             per fold increment (the aggregate family's combiner), and
+             aggregate_combine must launch on path 1 twice per major and
+             per fold increment (combine_compact, the index family's dedup
+             and the aggregate family's combiner), and
              filter_scan exactly once per scan, index or aggregate step
              on every path (one launch filters every LSM level).
   kernels    each kernel against its plain version on the card at the
@@ -66,13 +67,18 @@ no result line):
              on the base In(bytes_in) sets of 3,000, 12,000 and 30,000
              codes staged in shared memory and with their codes in global
              memory, and of 300,000 codes; merge_intersect: the posting
-             slabs of one AND-B batch, and an int64 case; combine_scan:
+             slabs of one AND-B batch (sorted probes), and an int64 case
+             with unsorted probes; combine_scan:
              all four ops on the largest tier-A batch of path 3, its sum
              with the 300,000-code program, and on 1,048,576 synthetic
              rows with one group over many tiles and a filter that
-             rejects half its rows; aggregate_combine: the
-             aggregate family's 2-way major and fold inputs and an int32
-             combine_sorted_counts case), with the error computed from the
+             rejects half its rows; aggregate_combine: combine_compact on
+             the index and aggregate families' 2-way major and fold
+             inputs, each also against the earlier path (the
+             combine_blocks kernel and PyTorch passes, composed here),
+             which it must match bit for bit and which is timed beside it,
+             and combine_blocks on an int32 combine_sorted_counts case),
+             with the error computed from the
              compared tensors (it must be 0), the kernel's time (cuda_ms:
              CUDA events around back-to-back calls, host dispatch
              included) and its device time alone (device_ms: a
@@ -80,9 +86,9 @@ no result line):
              and, where one PyTorch call
              computes the same function, that call's time (a stable
              torch.sort for merge_runs, torch.isin for merge_intersect;
-             none for combine_scan and aggregate_combine, which also
-             record torch.unique_consecutive + torch.segment_reduce as a
-             two-call yardstick).
+             none for combine_scan and aggregate_combine, whose
+             combine_blocks row also records torch.unique_consecutive +
+             torch.segment_reduce as a two-call yardstick).
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}. The full report
@@ -183,17 +189,18 @@ def cuda_ms(fn):
 DEVICE_MS_BY = []
 
 
-def device_ms(fn, names, calls=10):
+def device_ms(fn, names, calls=10, per_call=1):
     """The named kernels' own device time per fn() call, in ms.
 
     First a torch.profiler window over ``calls`` calls (CUDA activity
     only): the time of every device kernel or memset whose name holds one
     of ``names``, summed and divided by the calls. On the H100 runs so far
-    the profiler now and then reported no device events for a window, and
-    once for every window after the 18th; when two windows in a row hold
-    fewer than ``calls`` of them it falls back to queued_device_ms (CUDA events around the calls queued behind a
-    spin kernel, so no host gap
-    enters). Each row names its method beside the number."""
+    the profiler now and then reported no device events for a window, or
+    dropped some of them; a window must hold ``per_call`` of them (the
+    named launches of one call) for every call. When two windows in a row
+    hold fewer it falls back to queued_device_ms (CUDA events around the
+    calls queued behind a spin kernel, so no host gap enters). Each row
+    names its method beside the number."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -207,7 +214,7 @@ def device_ms(fn, names, calls=10):
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
-        if len(us) >= calls:
+        if len(us) >= calls * per_call:
             DEVICE_MS_BY.append("profiler")
             return sum(us) / calls / 1e3
     DEVICE_MS_BY.append("queued events")
@@ -649,10 +656,11 @@ def time_combine(name, keys, vals, cols, program, op):
 
 
 def time_aggregate(name, keys, counts):
-    """aggregate_combine against its plain version on sorted (B, n) keys,
-    and torch.unique_consecutive + torch.segment_reduce over the flattened
-    keys (two calls; float64 data, since segment_reduce takes no integers;
-    rows are not kept apart) as a yardstick."""
+    """combine_blocks (the host combiner's kernel) against its plain
+    version on sorted (B, n) keys, and torch.unique_consecutive +
+    torch.segment_reduce over the flattened keys (two calls; float64 data,
+    since segment_reduce takes no integers; rows are not kept apart) as a
+    yardstick."""
     import torch
     from repro_torch.kernels.aggregate_combine import combine_blocks, combine_blocks_ref
 
@@ -665,46 +673,128 @@ def time_aggregate(name, keys, counts):
         _, lengths = torch.unique_consecutive(flat, return_counts=True)
         return torch.segment_reduce(flat_counts, "sum", lengths=lengths)
 
-    live = int((keys != torch.iinfo(torch.int64).max).sum())
     per_entry = 8 + counts.element_size() + 1 + 8  # key and count read, head and sum written
     count_type = str(counts.dtype).replace("torch.", "")
     return {
-        "shape": name, "dims": list(keys.shape), "dtype": f"int64 keys, {count_type} counts",
-        "live_keys": live, "groups": int(got[0].sum()), "max_abs_err": err,
+        "shape": name, "entry": "combine_blocks", "dims": list(keys.shape),
+        "dtype": f"int64 keys, {count_type} counts", "groups": int(got[0].sum()),
+        "max_abs_err": err,
         "ms": cuda_ms(lambda: combine_blocks(keys, counts)),
         "device_ms": device_ms(lambda: combine_blocks(keys, counts),
-                               ("aggregate_combine_kernel", "aggregate_combine_stitch")),
+                               ("aggregate_combine_kernel", "aggregate_combine_stitch"),
+                               per_call=2 if keys.shape[-1] > 512 else 1),
         "device_ms_by": DEVICE_MS_BY[-1],
         "plain_ms": cuda_ms(lambda: combine_blocks_ref(keys, counts)),
         "bound_ms": keys.numel() * per_entry / HBM_BYTES_PER_S * 1e3,
-        "bound_ms_live_keys": live * per_entry / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
         "two_calls_ms": cuda_ms(two_calls),
     }
 
 
+def earlier_compact(keys, counts, cap, sentinel):
+    """The plane's combine-and-compact as PR 16 ran it, composed here as
+    the yardstick of combine_compact: the combine_blocks kernel's heads and
+    sums (for the dedup form, head flags in PyTorch), then the PyTorch
+    passes of the earlier _combine_dup_keys (segment ids by cumsum,
+    n_unique, the scatters of keys and sums) and the cut to cap."""
+    import torch
+    from repro_torch.kernels.aggregate_combine import combine_blocks
+
+    if counts is None:
+        is_head = torch.ones_like(keys, dtype=torch.bool)
+        is_head[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    else:
+        is_head, head_sums = combine_blocks(keys, counts)
+    seg = torch.cumsum(is_head, dim=1) - 1
+    n_unique = (is_head & (keys != sentinel)).sum(dim=1, dtype=torch.int32)
+    ukeys = torch.full_like(keys, sentinel).scatter_(1, seg, keys)
+    sums = None
+    if counts is not None:
+        sums = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
+        sums.scatter_add_(1, seg, head_sums)
+        sums = sums[:, :cap]
+    return ukeys[:, :cap], sums, n_unique
+
+
+def time_compact(name, keys, counts, n_live, cap, sentinel):
+    """combine_compact against its plain version and, as its yardstick,
+    the earlier path (earlier_compact) on the same inputs, which it must
+    match bit for bit."""
+    from repro_torch.kernels.aggregate_combine import combine_compact, combine_compact_ref
+
+    def same(x, y):
+        return all((a is None and b is None) or torch_equal(a, b) for a, b in zip(x, y))
+
+    got = combine_compact(keys, counts, n_live, cap, sentinel)
+    want = combine_compact_ref(keys, counts, n_live, cap, sentinel)
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want) if g is not None)
+    check(same(got, earlier_compact(keys, counts, cap, sentinel)),
+          f"{name}: combine_compact disagrees with the earlier path")
+    t, n = keys.shape
+    live = int(n_live.sum())
+    # The live keys and every count read once (tail keys count as the
+    # sentinel unread; tail counts still sum into slot n_unique), n_live
+    # read and n_unique written, a key and (with counts) an int64 sum
+    # written per output slot.
+    count_bytes = 0 if counts is None else t * n * counts.element_size()
+    slot_bytes = t * cap * (8 if counts is None else 16)
+    bound_bytes = live * 8 + count_bytes + t * 8 + slot_bytes
+    live_count_bytes = 0 if counts is None else live * counts.element_size()
+    names = ("compact_count", "compact_scan", "compact_write", "compact_carry")
+    launched = 3 if counts is None else 4  # compact_carry: with counts, over 2+ tiles
+    return {
+        "shape": name, "entry": "combine_compact", "dims": [t, n], "cap": cap,
+        "dtype": "int64 keys" + ("" if counts is None else
+                                 f", {str(counts.dtype).replace('torch.', '')} counts"),
+        "live_keys": live, "unique_keys": int(got[2].sum()), "max_abs_err": err,
+        "ms": cuda_ms(lambda: combine_compact(keys, counts, n_live, cap, sentinel)),
+        "device_ms": device_ms(lambda: combine_compact(keys, counts, n_live, cap, sentinel), names,
+                               per_call=launched),
+        "device_ms_by": DEVICE_MS_BY[-1],
+        "plain_ms": cuda_ms(lambda: combine_compact_ref(keys, counts, n_live, cap, sentinel)),
+        "bound_bytes": bound_bytes,
+        "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # The same bound if the tail's counts were known to be 0 and unread.
+        "bound_ms_live_counts": (bound_bytes - count_bytes + live_count_bytes)
+        / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None,
+        "earlier_ms": cuda_ms(lambda: earlier_compact(keys, counts, cap, sentinel)),
+        # The earlier path is a dozen PyTorch launches: timed queued, whole.
+        "earlier_device_ms": queued_device_ms(lambda: earlier_compact(keys, counts, cap, sentinel)),
+    }
+
+
 def combine_inputs(pre, sentinel):
-    """The aggregate family's combiner inputs at the end of ingest, as a
-    major (K-way then 2-way merge) and a fold increment build them:
-    sorted (T, N) keys and their int64 counts."""
+    """The plane's combine-and-compact inputs at the end of ingest, for the
+    index and aggregate families, as a major (K-way then 2-way merge) and a
+    fold increment build them: sorted (T, N) keys, the aggregate family's
+    int64 counts (None for the index family's dedup), the live lengths
+    (base_n plus the rows merged in) and the cap (the base's capacity)."""
     import torch
     from repro_torch.kernels.merge_runs import merge_pair_device, merge_sorted_device
 
-    rk, rc, rn = pre["ag_run_k"], pre["ag_run_c"], pre["ag_run_n"]
-    bk, bc, bn = pre["ag_base_k"], pre["ag_base_c"], pre["ag_base_n"]
-    t, k, m = rk.shape
-    within = torch.arange(m, device=rk.device)[None, None, :] < rn[..., None]
-    mk, mc = merge_sorted_device(torch.where(within, rk, sentinel),
-                                 torch.where(within[..., None], rc, 0), rn)
-    two_k, two_c = merge_pair_device(bk, bc, bn, mk, mc, rn.sum(dim=1, dtype=torch.int32))
-    slot = (pre["n_runs"] - 1).clamp(min=0).long()
-    tix = torch.arange(t, device=rk.device)
-    top_n = rn[tix, slot]
-    top = torch.arange(m, device=rk.device)[None, :] < top_n[:, None]
-    fold_k, fold_c = merge_pair_device(bk, bc, bn, torch.where(top, rk[tix, slot], sentinel),
-                                       torch.where(top[..., None], rc[tix, slot], 0), top_n)
-    return {"ag two_way": (two_k, two_c[..., 0].contiguous()),
-            "ag fold": (fold_k, fold_c[..., 0].contiguous())}
+    out = {}
+    for fam in ("ag", "ix"):
+        rk, rc, rn = pre[f"{fam}_run_k"], pre[f"{fam}_run_c"], pre[f"{fam}_run_n"]
+        bk, bc, bn = pre[f"{fam}_base_k"], pre[f"{fam}_base_c"], pre[f"{fam}_base_n"]
+        t, k, m = rk.shape
+        within = torch.arange(m, device=rk.device)[None, None, :] < rn[..., None]
+        mk, mc = merge_sorted_device(torch.where(within, rk, sentinel),
+                                     torch.where(within[..., None], rc, 0), rn)
+        rows_in = rn.sum(dim=1, dtype=torch.int32)
+        two_k, two_c = merge_pair_device(bk, bc, bn, mk, mc, rows_in)
+        slot = (pre["n_runs"] - 1).clamp(min=0).long()
+        tix = torch.arange(t, device=rk.device)
+        top_n = rn[tix, slot]
+        top = torch.arange(m, device=rk.device)[None, :] < top_n[:, None]
+        fold_k, fold_c = merge_pair_device(bk, bc, bn, torch.where(top, rk[tix, slot], sentinel),
+                                           torch.where(top[..., None], rc[tix, slot], 0), top_n)
+        cap = bk.shape[1]
+        for stage, keys, cols, live in (("two_way", two_k, two_c, bn + rows_in),
+                                        ("fold", fold_k, fold_c, bn + top_n)):
+            counts = cols[..., 0].contiguous() if fam == "ag" else None
+            out[f"{fam} {stage}"] = (keys, counts, live, cap)
+    return out
 
 
 def aggregate_step_breakdown(store, d, program, dev):
@@ -935,7 +1025,8 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     torch.cuda.synchronize(dev)
     drain_s = time.perf_counter() - t0
     ingest_spans = summarize_spans(obs.get_tracer().records)
-    # One aggregate-family combine per major and per fold increment.
+    # Majors and fold increments: each compacts the index and the
+    # aggregate family with one combine_compact launch apiece.
     combines = ingest_spans.get("ingest.major", {}).get("n", 0) + sum(
         1 for r in obs.get_tracer().records
         if r["name"] == "ingest.fold_increment" and r["args"].get("kind") == "fold")
@@ -992,9 +1083,9 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     check(launches_1["merge_runs"] > 0 and launches_1["filter_scan"] > 0
           and launches_1["aggregate_combine"] > 0,
           f"a kernel of path 1 never launched: {launches_1}")
-    check(launches_1["aggregate_combine"] == combines,
+    check(launches_1["aggregate_combine"] == 2 * combines,
           f"aggregate_combine launched {launches_1['aggregate_combine']} times on path 1, "
-          f"for {combines} majors and fold increments")
+          f"for {combines} majors and fold increments of two families")
 
     # Path 2: density planning and the index schemes on the same snapshot.
     zero_launches()
@@ -1172,16 +1263,17 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         log("kernel", json.dumps({"name": "combine_scan", **row}))
     report["tier_a_batch"] = {"lo": lo_t, "hi": hi_t, "rows": int(len(keys))}
 
-    # aggregate_combine at the aggregate family's combiner inputs, and an
-    # int32 combine_sorted_counts case.
+    # combine_compact at the index and aggregate families' inputs of a
+    # major and a fold increment, and combine_blocks on an int32
+    # combine_sorted_counts case (the host combiner).
     aggregate_rows = []
-    for name, (k, c) in combine_inputs(pre, KEY_PAD64).items():
-        aggregate_rows.append(time_aggregate(name, k, c))
+    for name, inputs in combine_inputs(pre, KEY_PAD64).items():
+        aggregate_rows.append(time_compact(name, *inputs, KEY_PAD64))
+        log("kernel", json.dumps({"name": "aggregate_combine", **aggregate_rows[-1]}))
     ck = torch.from_numpy(np.sort(rng.integers(0, 1 << 20, 1 << 22)))[None].to(dev)
     cc = torch.from_numpy(rng.integers(1, 100, (1, 1 << 22)).astype(np.int32)).to(dev)
     aggregate_rows.append(time_aggregate("combine_sorted_counts int32", ck, cc))
-    for row in aggregate_rows:
-        log("kernel", json.dumps({"name": "aggregate_combine", **row}))
+    log("kernel", json.dumps({"name": "aggregate_combine", **aggregate_rows[-1]}))
     report["aggregate_step"] = aggregate_step_breakdown(store, d, program, dev)
     log("aggregate", "device aggregate step on the base (spec a, tier A): "
         + json.dumps(report["aggregate_step"]))

@@ -12,9 +12,10 @@ The LSM lifecycle runs as PyTorch steps over that state:
     minor    per-tablet memtable sort into the next sorted-run slot
     major    K-way merge of the runs, then a 2-way merge with the base,
              both through the merge_runs rank kernel — blocking the writer
-             that tripped it (the paper's backpressure); the aggregate
-             family's duplicate keys then sum through the
-             aggregate_combine kernel
+             that tripped it (the paper's backpressure); the index and
+             aggregate families then compact their duplicate keys (the
+             aggregate family summing their counts) through the
+             combine_compact kernel
     fold     one increment of major compaction: the top run slot folds
              into the base (compact_step)
     seal     publish(): a fill-bounded sorted copy of every family's
@@ -49,7 +50,7 @@ from .device import resolve_device
 from .dist_query import DistStore
 from .ingest import BatchWriter
 from .store import DEFAULT_AGG_BUCKET_SECONDS
-from ..kernels.aggregate_combine import combine_blocks
+from ..kernels.aggregate_combine import combine_compact
 from ..kernels.common import pow2
 from ..kernels.merge_runs import merge_pair_device, merge_sorted_device
 from ..obs import MetricsRegistry, OwnedLock, span
@@ -81,31 +82,6 @@ def _gather_rows(cols: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     if w == 0:
         return cols.new_empty((t, n, 0))
     return cols.gather(1, order[..., None].expand(t, n, w))
-
-
-def _combine_dup_keys(keys: torch.Tensor, vals: Optional[torch.Tensor], sentinel: int):
-    """Per tablet, sum the payloads of equal adjacent keys of a sorted
-    (sentinel-tailed) (T, N) sequence and compact the unique keys to the
-    front. Returns (ukeys, int64 sums or None when vals is None, int32
-    n_unique (T,)). With values, the head flags and each key's sum come
-    from the aggregate_combine kernel (the combiner-on-compaction, one
-    launch over all tablets); the sentinel tail sums as one segment."""
-    if vals is None:
-        is_head = torch.ones_like(keys, dtype=torch.bool)
-        is_head[:, 1:] = keys[:, 1:] != keys[:, :-1]
-    else:
-        is_head, head_sums = combine_blocks(keys, vals)
-    seg = torch.cumsum(is_head, dim=1) - 1
-    n_unique = (is_head & (keys != sentinel)).sum(dim=1, dtype=torch.int32)
-    # Every member of a segment carries the same key, so the duplicate
-    # writes of this scatter all write one value.
-    ukeys = torch.full_like(keys, sentinel).scatter_(1, seg, keys)
-    sums = None
-    if vals is not None:
-        # Only heads hold a nonzero sum: one exact add per segment.
-        sums = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
-        sums.scatter_add_(1, seg, head_sums)
-    return ukeys, sums, n_unique
 
 
 def _sort_masked(keys: torch.Tensor, cols: torch.Tensor, n: torch.Tensor, sentinel: int):
@@ -244,16 +220,18 @@ class _PlanePrograms:
         """Combine a merged (base + runs) sequence per the family's rule
         and write base and overflow for the tablets where ``do``."""
         p, c = f.name, f.capacity
-        if f.combine == "sum":
-            fk, sums, total = _combine_dup_keys(fk, fc[..., 0], f.sentinel)
-            fc = sums[..., None].to(fc.dtype)
-        elif f.combine == "dedup":
-            fk, _, total = _combine_dup_keys(fk, None, f.sentinel)
+        live = st[f"{p}_base_n"] + rows_in  # the merge's real keys lead, sentinels after
+        if f.combine == "none":
+            total, fk, fc = live, fk[:, :c], fc[:, :c]
         else:
-            total = st[f"{p}_base_n"] + rows_in
+            # One combine_compact launch: the unique keys (and, for "sum",
+            # their count sums) compacted to the front and cut to c.
+            vals = fc[..., 0] if f.combine == "sum" else None
+            fk, sums, total = combine_compact(fk, vals, live, c, f.sentinel)
+            fc = fc[:, :c] if sums is None else sums[..., None].to(fc.dtype)
         kept = total.clamp(max=c)
-        out[f"{p}_base_k"] = torch.where(do[:, None], fk[:, :c], st[f"{p}_base_k"])
-        out[f"{p}_base_c"] = torch.where(do[:, None, None], fc[:, :c], st[f"{p}_base_c"])
+        out[f"{p}_base_k"] = torch.where(do[:, None], fk, st[f"{p}_base_k"])
+        out[f"{p}_base_c"] = torch.where(do[:, None, None], fc, st[f"{p}_base_c"])
         out[f"{p}_base_n"] = torch.where(do, kept, st[f"{p}_base_n"])
         out[f"{p}_overflow"] = st[f"{p}_overflow"] + torch.where(do, total - kept, 0)
 

@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp]
             fn.restype = i
+        lib.combine_compact.argtypes = [vp, vp, i, vp, ll, ll, ll, ll, vp, vp, vp, vp, vp, vp]
+        lib.combine_compact.restype = i
         for name in ("combine_scan_tile_rows", "aggregate_combine_tile_rows",
                      "combine_scan_accumulator_bytes", "shared_optin_bytes"):
             fn = getattr(lib, name)

@@ -92,6 +92,33 @@ __device__ __forceinline__ long long block_max_scan(long long v, long long* scra
   return v;
 }
 
+// Inclusive running sum of one value per thread over the block; total gets
+// the block's sum. scratch is shared, kWarps Ts. Every thread must call it.
+template <int kWarps, typename T>
+__device__ __forceinline__ T block_sum_scan(T v, T* scratch, T& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += y;
+  }
+  if (lane == 31) scratch[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    T x = lane < kWarps ? scratch[lane] : T(0);
+    for (int off = 1; off < 32; off <<= 1) {
+      const T y = __shfl_up_sync(kFull, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane < kWarps) scratch[lane] = x;
+  }
+  __syncthreads();
+  if (warp > 0) v += scratch[warp - 1];
+  total = scratch[kWarps - 1];
+  __syncthreads();  // the next call rewrites scratch
+  return v;
+}
+
 // The stitch of one row of `tiles` tiles of `tile` entries: keys is the
 // row, last its tiles' last true heads. fold(owner, i) moves the partial
 // at tile start i into the true head owner; tile starts that do not

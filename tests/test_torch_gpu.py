@@ -31,6 +31,8 @@ from repro_torch.kernels.program_eval import program_eval_rows
 from repro_torch.kernels.aggregate_combine import (
     combine_blocks,
     combine_blocks_ref,
+    combine_compact,
+    combine_compact_ref,
     combine_sorted_counts,
     ops as agg_ops,
 )
@@ -333,6 +335,35 @@ def test_member_mask_kernel_matches_plain_version(cuda, dtype, shape):
     assert torch.equal(got.cpu(), member_mask_keys(torch.from_numpy(a), torch.from_numpy(b)))
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["sparse", "dense", "pads", "unsorted", "empty_set"])
+def test_member_mask_kernel_on_sorted_probes_and_staged_slices(cuda, dtype, case):
+    """Sorted probes, as the index AND gives them: a sparse set whose slice
+    for one tile of probes is far past the shared staging buffer, a dense
+    one, duplicates with INT_MAX pads at the end of both rows, and the same
+    probes shuffled; m = 0."""
+    rng = np.random.default_rng(len(case))
+    sentinel = np.iinfo(dtype).max
+    rows, n, m = 8, 12288, {"sparse": 200000, "empty_set": 0}.get(case, 12288)
+    hi = {"sparse": 1 << 20, "dense": 1 << 16}.get(case, 1 << 12)
+    b = np.sort(rng.integers(0, hi, (rows, m)), axis=1).astype(dtype)
+    a = np.sort(rng.integers(0, hi, (rows, n)), axis=1).astype(dtype)
+    if case in ("pads", "unsorted"):
+        a[:, n // 3:] = np.sort(a[:, n // 3:] // 8, axis=1)  # many duplicates
+        a.sort(axis=1)
+        a[:, -1000:] = sentinel
+        b[:, -3000:] = sentinel
+    if case == "unsorted":
+        a = rng.permuted(a, axis=1)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    got = member_mask(ta, tb)
+    torch.cuda.synchronize()
+    want = member_mask_keys(ta, tb)
+    assert torch.equal(got, want)
+    assert case != "empty_set" or not bool(want.any())
+    assert case == "empty_set" or bool(want.any())
+
+
 def test_card_index_schemes_match_cpu_plane(cuda):
     rng = np.random.default_rng(9)
     n = 6000
@@ -439,6 +470,47 @@ def test_aggregate_combine_kernel_matches_plain_version(cuda, dtype, shape, live
     want = combine_blocks_ref(keys, counts)
     assert got[0].dtype == torch.bool and got[1].dtype == torch.int64
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("counts_dtype", [torch.int64, torch.int32, None])
+@pytest.mark.parametrize("case", ["lives", "chained", "tail_counts", "small_cap", "ag_major"])
+def test_combine_compact_kernel_matches_plain_version(cuda, case, counts_dtype):
+    """Live lengths 0, 1, a tile boundary and N; keys chained over many
+    tiles; nonzero counts in the sentinel tail; cap well under N; the
+    aggregate family's 2-way major shape. counts None is the index
+    family's dedup."""
+    sentinel = torch.iinfo(torch.int64).max
+    rows, n, cap, nkeys = {"lives": (5, 5000, 4000, 600), "chained": (3, 40000, 40000, 3),
+                           "tail_counts": (4, 3000, 3000, 200), "small_cap": (3, 6000, 700, 5000),
+                           "ag_major": (64, 1769472, 1572864, 400000)}[case]
+    gen = torch.Generator(device=cuda).manual_seed(n + rows)
+    live = {"lives": [0, 1, 512, 1024, n], "chained": [n, 30000, 1]}.get(case)
+    if live is None:
+        live = torch.randint(0, n + 1, (rows,), device=cuda, generator=gen).tolist()
+    keys = torch.randint(0, nkeys, (rows, n), device=cuda, generator=gen).sort(dim=1).values
+    n_live = torch.tensor(live, dtype=torch.int32, device=cuda)
+    pos = torch.arange(n, device=cuda)[None, :]
+    # Past n_live the keys are junk: they count as the sentinel unread.
+    keys = torch.where(pos < n_live[:, None], keys, -1 if case == "lives" else sentinel)
+    counts = None
+    if counts_dtype is not None:
+        counts = torch.randint(-9, 1 << 20, (rows, n), device=cuda, generator=gen)
+        if case == "lives":
+            counts = counts + (1 << 40)
+        if case != "tail_counts":
+            counts = torch.where(pos < n_live[:, None], counts, 0)
+        counts = counts.to(counts_dtype)
+    before = agg_ops.launches
+    got = combine_compact(keys, counts, n_live, cap, sentinel)
+    torch.cuda.synchronize()
+    assert agg_ops.launches == before + 1
+    want = combine_compact_ref(keys, counts, n_live, cap, sentinel)
+    assert got[0].shape == (rows, cap) and got[2].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    if counts is None:
+        assert got[1] is None
+    else:
+        assert got[1].dtype == torch.int64 and torch.equal(got[1], want[1])
 
 
 def test_combine_sorted_counts_on_the_card_matches_the_cpu(cuda):
