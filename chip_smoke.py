@@ -21,7 +21,7 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  three paths at full size, each with every kernel launch count
+  main path  four paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -58,10 +58,38 @@ no result line):
              and the aggregate family's combiner), and
              filter_scan exactly once per scan, index or aggregate step
              on every path (one launch filters every LSM level).
+             4. the sharded plane: the same events, encoded once before
+                any timed region, through W = 4 writer threads (writer i
+                takes every fourth 65,536-event chunk and routes each row
+                by DistBatchWriter's row hash with writer_id=i) into a
+                fresh plane of G = 1 and then of G = 4 tablet groups (16
+                tablets each, a lock each), and as a control by one thread
+                into G = 4, timed from the threads' start to the last join; rows/s, blocked seconds per writer, each
+                group lock's held and wait seconds, majors, peak memory
+                and launches per run. Each plane is drained with
+                compact_step (on G = 4 a publish after the first increment
+                must give the three untouched groups' snapshots as the same
+                objects); the per-tablet rows of G = 1 and G = 4 must be
+                equal; on the G = 4 composite snapshot every scheme's total
+                for the tiers, A AND 404 and A AND bytes_out < 1000 must
+                equal paths 1-2, and aggregate_range specs (a) and (c) path
+                3's results bit for bit. aggregate_combine must launch
+                exactly twice per major and fold increment under the
+                threads. Last, from_event_store replays the host store into
+                a base-only snapshot of 64 tablets whose scan and
+                batched_scan totals, and execute_batched's over more than
+                one batch, must equal paths 1-2.
+             Paths 1-3 also run the Cmp and Match filter nodes:
+             domain = A AND bytes_out < 1000 on all four schemes and on
+             path 3 with spec (a), Match(domain, "d0000") (the ten most
+             popular domains) on the scan schemes, and bytes_in >=
+             1,000,000 (nearly all 48,576 values of [10^6, 2^20)) on scan.
   kernels    each kernel against its plain version on the card at the
              main path's shapes (merge_runs: the K-way and 2-way stages of
              a major and the incremental fold, for the ev, ix and ag
-             families, with the earlier design's time beside; filter_scan:
+             families, with the earlier design's time beside, and the ix
+             and ag 2-way and fold at one group's shape of path 4, 16
+             tablets; filter_scan:
              the fused scan step over base, runs and memtable, each level
              alone, the index step's candidate rows alone and fused, and
              on the base In(bytes_in) sets of 3,000, 12,000 and 30,000
@@ -77,7 +105,8 @@ no result line):
              inputs, each also against the earlier path (the
              combine_blocks kernel and PyTorch passes, composed here),
              which it must match bit for bit and which is timed beside it,
-             and combine_blocks on an int32 combine_sorted_counts case),
+             and at one group's shape, and combine_blocks on an int32
+             combine_sorted_counts case),
              with the error computed from the
              compared tensors (it must be 0), the kernel's time (cuda_ms:
              CUDA events around back-to-back calls, host dispatch
@@ -825,10 +854,12 @@ def aggregate_step_breakdown(store, d, program, dev):
     }
 
 
-def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts):
+def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts, cmp_query):
     """Path 3: the host combine_scan scheme and the device aggregate_range
-    for every spec on the tier queries and A AND 404. Returns the per-query
-    rows and the (lo, hi) of the largest tier-A batch of spec (b)."""
+    for every spec on the tier queries and A AND 404, and for spec (a) on
+    cmp_query ((label, tree, count)). Returns the per-query rows, the (lo,
+    hi) of the largest tier-A batch of spec (b) and the host results by
+    (query, spec)."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.core import Eq, And, QueryProcessor, QueryStats
@@ -839,10 +870,10 @@ def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts):
     queries = [(tier, Eq("domain", dom), domain_counts[dom]) for tier, dom in tiers.items()]
     queries.append(("A and 404", And(Eq("domain", tiers["A"]), Eq("status", "404")),
                     pair_counts[(tiers["A"], "404")]))
-    rows, largest_a = [], None
+    rows, largest_a, results = [], None, {}
     for sname, spec in agg_specs().items():
         grouping = resolve_grouping(store, spec, 0, T_SPAN)
-        for label, tree, want in queries:
+        for label, tree, want in queries + ([cmp_query] if sname.startswith("a") else []):
             stats = QueryStats()
             t0 = time.perf_counter()
             it = qp.run_scheme("combine_scan", 0, T_SPAN, tree, aggregate=spec, stats=stats,
@@ -852,6 +883,7 @@ def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts):
             blocks.extend(it)
             total_s = time.perf_counter() - t0
             host = merge_aggregate_blocks(grouping, blocks)
+            results[(label, sname)] = host
             if label == "A" and sname.startswith("b"):
                 largest_a = max(stats.batch_log, key=lambda b: b[3])[:2]
             row = {"query": label, "spec": sname, "want": want, "groups": host.n_groups,
@@ -885,7 +917,7 @@ def run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts):
                       f"path 3 {label} {sname}: device ({key}) differs from the host")
             log("aggregate", json.dumps(row))
             rows.append(row)
-    return rows, largest_a
+    return rows, largest_a, results
 
 
 def summarize_spans(records):
@@ -898,12 +930,40 @@ def summarize_spans(records):
     return out
 
 
+class GcPauses:
+    """Seconds the garbage collector ran, and its passes by generation,
+    while the block is open (gc.callbacks brackets each pass)."""
+
+    def __init__(self):
+        self.s = 0.0
+        self.passes = [0, 0, 0]
+        self._t0 = None
+
+    def _hook(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self.passes[info["generation"]] += 1
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+        gc.callbacks.append(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._hook)
+
+
 def run_query(dq, scheme, tree, label, want):
     """One scheme run over the 4-hour range, with tracing on: time to the
-    first batch and to the last, the plan, the run's QueryStats, and its
-    spans. In an index-mode run every query.scan_range span is a batch that
-    truncated and fell back to the exact scan. filter_scan must launch once
-    per step (each query.scan_range and query.scan_index_range span)."""
+    first batch and to the last, the garbage collector's seconds within
+    each, the plan, the run's QueryStats, and its spans. In an index-mode
+    run every query.scan_range span is a batch that truncated and fell
+    back to the exact scan. filter_scan must launch once per step (each
+    query.scan_range and query.scan_index_range span)."""
     from repro_torch import obs
     from repro_torch.core.dist_query import QueryStats
     from repro_torch.kernels.filter_scan import ops as filter_ops
@@ -911,14 +971,16 @@ def run_query(dq, scheme, tree, label, want):
     obs.clear()
     stats = QueryStats()
     filter_before = filter_ops.launches
-    t0 = time.perf_counter()
-    it = dq.run_scheme(scheme, 0, T_SPAN, tree, stats=stats)
-    first = next(it, None)
-    ttfr = time.perf_counter() - t0
-    rows = first.count if first is not None else 0
-    for blk in it:
-        rows += blk.count
-    total_s = time.perf_counter() - t0
+    with GcPauses() as gc_first:
+        t0 = time.perf_counter()
+        it = dq.run_scheme(scheme, 0, T_SPAN, tree, stats=stats)
+        first = next(it, None)
+        ttfr = time.perf_counter() - t0
+    with GcPauses() as gc_rest:
+        rows = first.count if first is not None else 0
+        for blk in it:
+            rows += blk.count
+        total_s = time.perf_counter() - t0
     spans = summarize_spans(obs.get_tracer().records)
     steps = sum(spans.get(k, {}).get("n", 0)
                 for k in ("query.scan_range", "query.scan_index_range"))
@@ -931,6 +993,8 @@ def run_query(dq, scheme, tree, label, want):
         "plan": plan.describe(), "mode": plan.mode, "n_conds": len(plan.index_conds),
         "batches": stats.batches, "steps": steps, "filter_launches": filter_launches,
         "ttfr_s": ttfr, "total_s": total_s,
+        "ttfr_gc_s": gc_first.s, "gc_s": gc_first.s + gc_rest.s,
+        "gc_passes": [a + b for a, b in zip(gc_first.passes, gc_rest.passes)],
         "fallbacks": spans.get("query.scan_range", {}).get("n", 0) if plan.mode == "index" else 0,
         "index_keys_scanned": stats.index_keys_scanned,
         "density_s": spans.get("query.density", {}).get("s", 0.0),
@@ -941,6 +1005,210 @@ def run_query(dq, scheme, tree, label, want):
     log("query", json.dumps({k: v for k, v in q.items()
                              if k not in ("tree", "spans", "batch_log")}))
     return q
+
+
+def writer_streams(encoded, n_tablets, chunk, n_writers):
+    """Path 4's input, made once before any timed region: the events as
+    path 1's writer encoded them, cut into chunks of ``chunk`` rows; writer
+    i takes every n_writers-th chunk and routes each row by the row hash
+    DistBatchWriter computes with writer_id=i (content, ts, the writer's
+    running row count and its id). Returns, per writer, its list of (rev_ts
+    int32, cols, global tablet ids)."""
+    import numpy as np
+    from repro_torch.core import keypack
+
+    ts = np.concatenate([t for t, _ in encoded]).astype(np.int64)
+    cols = np.concatenate([c for _, c in encoded])
+    streams = [[] for _ in range(n_writers)]
+    count = [0] * n_writers
+    for i, off in enumerate(range(0, len(ts), chunk)):
+        w = i % n_writers
+        t, c = ts[off: off + chunk], cols[off: off + chunk]
+        nonce = np.arange(count[w], count[w] + len(t), dtype=np.int64)
+        count[w] += len(t)
+        h = keypack.short_hash(*(c[:, j] for j in range(c.shape[1])), t, nonce, np.int64(w))
+        streams[w].append((keypack.rev_ts(t).astype(np.int32), c,
+                           (h % n_tablets).astype(np.int64)))
+    return streams
+
+
+def threaded_ingest(plane, streams):
+    """One thread per writer stream, each appending its chunks in order
+    with its writer id; a writer's exception is raised here."""
+    import threading
+
+    errors = []
+
+    def work(w):
+        try:
+            for rts, cols, tab in streams[w]:
+                plane.ingest(rts, cols, tab, writer_id=w)
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(w,)) for w in range(len(streams))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def serial_ingest(plane, streams):
+    """The writers' chunks appended by this thread alone, in the order
+    they were cut (writer ids kept): the control for threaded_ingest."""
+    for i in range(max(len(s) for s in streams)):
+        for w, stream in enumerate(streams):
+            if i < len(stream):
+                plane.ingest(*stream[i], writer_id=w)
+
+
+def run_sharded(store, encoded, dev, size, queries, cmp_query, agg_results, read_launches,
+                n_writers=4):
+    """Path 4: the main path's events through W = 4 writer threads into a
+    fresh plane of G = 1 and then G = 4 tablet groups, and, as a control,
+    appended by one thread into G = 4 groups (the previous plane freed
+    first each time), each drained with compact_step; on the threaded
+    G = 4 composite snapshot every scheme's total and aggregate_range
+    specs (a) and (c) must equal paths 1 and 3; then the bulk replay of
+    the host store (from_event_store) must give a base-only snapshot with
+    the same totals. Returns the report."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.dist_ingest import DistIngestPlane
+    from repro_torch.core.dist_query import DistQueryProcessor, from_event_store
+
+    events, n_tab = size["events"], size["tablets"]
+    streams = writer_streams(encoded, n_tab, size["chunk"], n_writers)
+    specs = agg_specs()
+    out = {"writers": n_writers, "runs": {}}
+    rows_g1 = None
+    for label, n_groups, threaded in (("G=1, 4 threads", 1, True),
+                                      ("G=4, 1 thread", 4, False),
+                                      ("G=4, 4 threads", 4, True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        plane = DistIngestPlane.for_store(
+            store, capacity=size["capacity"], n_tablets=n_tab, mem_rows=size["mem_rows"],
+            max_runs=size["max_runs"], append_rows=1024, n_groups=n_groups, device=dev)
+        before = read_launches()
+        # Allocated with this plane's state, path 1's plane and its
+        # end-of-ingest levels; the peak adds the run's temporaries.
+        allocated = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        (threaded_ingest if threaded else serial_ingest)(plane, streams)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        ingest_launches = {k: v - before[k] for k, v in read_launches().items()}
+        tel = plane.telemetry()
+        check(int(tel["rows"].sum()) == events, f"path 4 {label}: {tel['rows'].sum()} rows")
+        check(int(tel["overflow"].sum()) == 0 and int(tel["ix_overflow"].sum()) == 0
+              and int(tel["ag_overflow"].sum()) == 0, f"path 4 {label}: tablet overflow")
+        majors = plane.fold_events.get("ingest", 0)
+        check(ingest_launches["aggregate_combine"] == 2 * majors,
+              f"path 4 {label}: aggregate_combine launched "
+              f"{ingest_launches['aggregate_combine']} times for {majors} majors of two families")
+        run = {
+            "run": label, "groups": n_groups, "threads": n_writers if threaded else 1,
+            "seconds": secs, "rows_per_s": events / secs,
+            "blocked_s": plane.blocked_seconds,
+            "blocked_s_per_writer": plane.blocked_by_writer,
+            "locks": [{k: g.lock.snapshot()[k] for k in ("name", "total_held_s", "total_wait_s",
+                                                         "acquisitions")}
+                      for g in plane.groups],
+            "majors": majors, "major_per_tablet_sum": int(tel["major"].sum()),
+            "minor": int(tel["minor"].sum()), "overflow": int(tel["overflow"].sum()),
+            "ingest_launches": ingest_launches,
+            "allocated_at_start_bytes": allocated,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "state_bytes": plane.state_bytes(),
+        }
+        # Drain. On the G = 4 plane, a publish after one increment must
+        # give the three groups it did not touch as the same objects.
+        folds = steps = 0
+        d_before = plane.publish() if n_groups > 1 else None
+        t0 = time.perf_counter()
+        while plane.has_unfolded():
+            folds += plane.fold_debt() > 0  # the picked group folds its top run
+            steps += plane.compact_step()
+            if d_before is not None:
+                d_after = plane.publish()
+                same = [a is b for a, b in zip(d_before.groups, d_after.groups)]
+                check(sum(same) == n_groups - 1,
+                      f"path 4: after one compact_step, groups aliased {same}")
+                d_before = None
+        torch.cuda.synchronize(dev)
+        d_after = None  # the first drain step's snapshot holds the plane's buffers
+        run["drain_steps"], run["drain_folds"] = steps, folds
+        run["drain_s"] = time.perf_counter() - t0
+        run["launches"] = {k: v - before[k] for k, v in read_launches().items()}
+        check(run["launches"]["aggregate_combine"] == 2 * (majors + folds),
+              f"path 4 {label}: aggregate_combine launched "
+              f"{run['launches']['aggregate_combine']} times for {majors} majors and {folds} "
+              f"fold increments")
+        rows = plane.telemetry()["rows"]
+        if rows_g1 is None:
+            rows_g1 = rows
+        else:
+            check(np.array_equal(rows, rows_g1), f"path 4: per-tablet rows of {label} != G=1")
+        log("sharded", json.dumps(run))
+        out["runs"][label] = run
+        if not (threaded and n_groups > 1):
+            del plane
+            continue
+        dq = DistQueryProcessor(store, plane, device=dev)
+        d = dq._sync()
+        check(d.is_composite and len(d.groups) == n_groups,
+              f"path 4: the G={n_groups} snapshot is not a composite of {n_groups} groups")
+        totals = {}
+        for qlabel, tree, want in queries + [cmp_query]:
+            for scheme in SCHEMES:
+                t0 = time.perf_counter()
+                got = sum(b.count for b in dq.run_scheme(scheme, 0, T_SPAN, tree))
+                totals[f"{qlabel} {scheme}"] = {"rows": got, "s": time.perf_counter() - t0}
+                check(got == want, f"path 4 {qlabel} {scheme}: {got} rows, paths 1-2 count {want}")
+        for qlabel, tree, _ in queries:
+            for sname in ("a count/status/hour", "c max bytes_out/status"):
+                res = dq.aggregate_range(specs[sname], tree, 0, T_SPAN)
+                check(same_aggregates(res, agg_results[(qlabel, sname)]),
+                      f"path 4 {qlabel} {sname}: the composite's aggregate differs from path 3")
+        out["composite_queries"] = totals
+        log("sharded", "G=4 composite: every total equals paths 1-2, specs (a) and (c) equal "
+            "path 3 bit for bit: " + json.dumps(totals))
+        del dq, d, plane
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Bulk replay of the host store into a base-only snapshot.
+    t0 = time.perf_counter()
+    replay = from_event_store(store, n_tablets=n_tab, device=dev)
+    torch.cuda.synchronize(dev)
+    replay_s = time.perf_counter() - t0
+    check(not replay.has_runs and replay.run_rev_ts is None and replay.has_index,
+          "from_event_store did not return a base-only snapshot with an index")
+    dq = DistQueryProcessor(store, dist=replay, device=dev)
+    totals = {}
+    for label, tree, want in queries + [cmp_query]:
+        for scheme in ("scan", "batched_scan"):
+            got = sum(b.count for b in dq.run_scheme(scheme, 0, T_SPAN, tree))
+            totals[f"{label} {scheme}"] = got
+            check(got == want, f"replay {label} {scheme}: {got} rows, paths 1-2 count {want}")
+    label, tree, want = queries[0]
+    batches = dq.execute_batched(tree, 0, T_SPAN)
+    got = sum(c for c, _, _ in batches)
+    check(got == want and len(batches) > 1,
+          f"replay execute_batched {label}: {got} rows in {len(batches)} batches, want {want}")
+    out["replay"] = {"seconds": replay_s, "capacity": replay.capacity, "totals": totals,
+                     "execute_batched": {"rows": got, "batches": len(batches)}}
+    log("sharded", "bulk replay: " + json.dumps(out["replay"]))
+    del dq, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_main_path(seed, dev, size=MAIN_PATH):
@@ -954,7 +1222,7 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         _expand_level,
         _posting_slabs,
     )
-    from repro_torch.core.filter import And, Eq, In, Not, Or
+    from repro_torch.core.filter import And, Cmp, Eq, In, Match, Not, Or
     from repro_torch.core.planner import plan_query
     from repro_torch.core.schema import web_proxy_schema
     from repro_torch.core.store import EventStore
@@ -998,6 +1266,8 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     torch.cuda.reset_peak_memory_stats(dev)
     domain_counts = Counter()
     pair_counts = Counter()
+    out_lt_1000 = Counter()  # per domain, events with bytes_out < 1000
+    in_ge_1m = 0  # events with bytes_in >= 1,000,000
 
     zero_launches()  # path 1: ingest and scans
     obs.enable()
@@ -1008,6 +1278,9 @@ def run_main_path(seed, dev, size=MAIN_PATH):
         ts, vals = parse_web_proxy_lines(source.gen_lines(n, 0, T_SPAN))
         domain_counts.update(vals["domain"])
         pair_counts.update(zip(vals["domain"], vals["status"]))
+        doms = np.asarray(vals["domain"])
+        out_lt_1000.update(doms[np.asarray(vals["bytes_out"]).astype(np.int64) < 1000].tolist())
+        in_ge_1m += int((np.asarray(vals["bytes_in"]).astype(np.int64) >= 1_000_000).sum())
         t0 = time.perf_counter()
         writer.add(ts, vals)
         ingest_s += time.perf_counter() - t0
@@ -1078,6 +1351,17 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     big_in = And(eq["A"], In("bytes_in", in_values))
     for scheme in ("scan", "batched_scan"):
         queries.append(run_query(dq, scheme, big_in, f"A and bytes_in in {n_in:,}", want_big))
+    # The Cmp and Match filter nodes: codesets resolved on the host, run as
+    # In programs (the bytes_in one of about 45,000 codes).
+    cmp_a = ("A and bytes_out<1000", And(eq["A"], Cmp("bytes_out", "<", 1000)),
+             out_lt_1000[tiers["A"]])
+    match = ("domain d0000*", Match("domain", "d0000"),
+             sum(c for dom, c in domain_counts.items() if dom.startswith("d0000")))
+    for scheme in ("scan", "batched_scan"):
+        queries.append(run_query(dq, scheme, cmp_a[1], cmp_a[0], cmp_a[2]))
+        queries.append(run_query(dq, scheme, match[1], match[0], match[2]))
+    queries.append(run_query(dq, "scan", Cmp("bytes_in", ">=", 1_000_000), "bytes_in>=1e6",
+                             in_ge_1m))
     launches_1 = read_launches()
     log("launches", "path 1 (ingest and scans): " + json.dumps(launches_1))
     check(launches_1["merge_runs"] > 0 and launches_1["filter_scan"] > 0
@@ -1101,6 +1385,7 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     for scheme in ("index", "batched_index"):
         queries.append(run_query(dq, scheme, b_or_c, "B or C",
                                  domain_counts[tiers["B"]] + domain_counts[tiers["C"]]))
+        queries.append(run_query(dq, scheme, cmp_a[1], cmp_a[0], cmp_a[2]))
     launches_2 = read_launches()
     log("launches", "path 2 (density and index): " + json.dumps(launches_2))
     check(launches_2["merge_intersect"] > 0 and launches_2["filter_scan"] > 0,
@@ -1114,20 +1399,35 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     store.flush_all()
     store.compact_all()
     host_setup_s = time.perf_counter() - t0
-    encoded.clear()
     log("aggregate", f"host EventStore(n_shards={store.n_shards}) filled with {store.total_rows} "
         f"events, flushed and compacted in {host_setup_s:.3f} s (set-up, untimed)")
     zero_launches()
-    agg_rows, largest_a = run_aggregations(store, dq, dev, tiers, domain_counts, pair_counts)
+    agg_rows, largest_a, agg_results = run_aggregations(store, dq, dev, tiers, domain_counts,
+                                                        pair_counts, cmp_a)
     launches_3 = read_launches()
     obs.disable()
     log("launches", "path 3 (aggregation): " + json.dumps(launches_3))
     check(launches_3["combine_scan"] > 0 and launches_3["filter_scan"] > 0
           and launches_3["merge_intersect"] > 0, f"a kernel of path 3 never launched: {launches_3}")
     report["aggregation"] = {"host_setup_s": host_setup_s, "queries": agg_rows}
-    launches = {k: launches_1[k] + launches_2[k] + launches_3[k] for k in launches_1}
+
+    # Path 4: the sharded plane, W = 4 writer threads into G = 1 and G = 4
+    # tablet groups, then the bulk replay of the host store.
+    zero_launches()
+    path4_queries = [(tier, eq[tier], domain_counts[tiers[tier]]) for tier in tiers]
+    path4_queries.append(("A and 404", ands["A"], pair_counts[(tiers["A"], "404")]))
+    report["sharded"] = run_sharded(
+        store, encoded, dev, size, path4_queries, cmp_a, agg_results, read_launches)
+    launches_4 = read_launches()
+    encoded.clear()
+    log("launches", "path 4 (sharded plane and bulk replay): " + json.dumps(launches_4))
+    check(all(launches_4[k] > 0 for k in ("merge_runs", "filter_scan", "merge_intersect",
+                                           "aggregate_combine")),
+          f"a kernel of path 4 never launched: {launches_4}")
+    launches = {k: launches_1[k] + launches_2[k] + launches_3[k] + launches_4[k]
+                for k in launches_1}
     report["launches"] = {"total": launches, "path_1": launches_1, "path_2": launches_2,
-                          "path_3": launches_3}
+                          "path_3": launches_3, "path_4": launches_4}
 
     d = dq.dist
     densities = {}
@@ -1170,6 +1470,19 @@ def run_main_path(seed, dev, size=MAIN_PATH):
             keys = inputs[0]
             payload = torch.zeros((*keys.shape, rc.shape[-1]), dtype=rc.dtype, device=dev)
             row = time_merge(f"{fam} {stage}", *inputs, payload)
+            del payload
+            merge_rows.append(row)
+            log("kernel", json.dumps({"name": "merge_runs", **row}))
+    # The same merges at one group's shape of path 4's G = 4 plane.
+    per_group = size["tablets"] // 4
+    pre_g = {k: v[:per_group] for k, v in pre.items()}
+    for fam in ("ix", "ag"):
+        rc = pre_g[f"{fam}_run_c"]
+        for stage, inputs in merge_inputs(pre_g, fam, KEY_PAD64).items():
+            if stage == "kway":
+                continue
+            payload = torch.zeros((*inputs[0].shape, rc.shape[-1]), dtype=rc.dtype, device=dev)
+            row = time_merge(f"{fam} {stage}, one group ({per_group} tablets)", *inputs, payload)
             del payload
             merge_rows.append(row)
             log("kernel", json.dumps({"name": "merge_runs", **row}))
@@ -1269,6 +1582,10 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     aggregate_rows = []
     for name, inputs in combine_inputs(pre, KEY_PAD64).items():
         aggregate_rows.append(time_compact(name, *inputs, KEY_PAD64))
+        log("kernel", json.dumps({"name": "aggregate_combine", **aggregate_rows[-1]}))
+    for name, inputs in combine_inputs(pre_g, KEY_PAD64).items():
+        aggregate_rows.append(time_compact(f"{name}, one group ({per_group} tablets)", *inputs,
+                                           KEY_PAD64))
         log("kernel", json.dumps({"name": "aggregate_combine", **aggregate_rows[-1]}))
     ck = torch.from_numpy(np.sort(rng.integers(0, 1 << 20, 1 << 22)))[None].to(dev)
     cc = torch.from_numpy(rng.integers(1, 100, (1, 1 << 22)).astype(np.int32)).to(dev)

@@ -5,8 +5,8 @@ and the device ingest plane, query and aggregation paths in PyTorch."""
 from . import (  # noqa: F401
     batching, filter, iterators, keypack, planner, query, scan, schema, store, tables,
 )
-from .batching import AdaptiveBatcher  # noqa: F401
-from .filter import And, Eq, In, Node, Not, Or, TrueNode  # noqa: F401
+from .batching import AdaptiveBatcher, iter_batches, run_batched_query  # noqa: F401
+from .filter import And, Cmp, Eq, In, Match, Node, Not, Or, TrueNode  # noqa: F401
 from .iterators import (  # noqa: F401
     AggregateBlock,
     AggregateResult,
@@ -20,6 +20,7 @@ from .iterators import (  # noqa: F401
     merge_aggregate_blocks,
     resolve_grouping,
 )
+from .ingest import check_shard_guidance  # noqa: F401
 from .planner import QueryPlan, plan_query  # noqa: F401
 from .query import QueryProcessor, QueryStats  # noqa: F401
 from .schema import EventSchema, FieldSpec, web_proxy_schema  # noqa: F401

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import Callable, Iterator, List, Tuple
 
 DEFAULT_K0 = 10.0
 DEFAULT_C = 1.5
@@ -98,6 +98,42 @@ class AdaptiveBatcher:
         self._b = max(b_next, self.eps)
         self._k = max(k_next, 1.0)
         self._i += 1
+
+
+def run_batched_query(
+    t_start: float,
+    t_stop: float,
+    b0: float,
+    query: Callable[[float, float], Tuple[float, int]],
+    **kw,
+) -> AdaptiveBatcher:
+    """Algorithm 2: run ``query(p, p + b)`` over adapting batches until the
+    position passes t_stop. ``query`` returns (runtime_seconds, n_rows)."""
+    batcher = AdaptiveBatcher(t_start=t_start, t_stop=t_stop, b0=b0, **kw)
+    while not batcher.done:
+        lo, hi = batcher.next_range()
+        runtime, rows = query(lo, hi)
+        batcher.update(runtime, rows)
+    return batcher
+
+
+def iter_batches(
+    t_start: float, t_stop: float, b0: float, **kw
+) -> Iterator[Tuple[Tuple[float, float], Callable[[float, int], None]]]:
+    """Generator form of Algorithm 2: yields ((lo, hi), report) pairs; the
+    caller calls report(runtime, rows) before advancing."""
+    batcher = AdaptiveBatcher(t_start=t_start, t_stop=t_stop, b0=b0, **kw)
+    while not batcher.done:
+        rng = batcher.next_range()
+        reported = {}
+
+        def report(runtime: float, rows: int, _r=reported):
+            _r["x"] = (runtime, rows)
+
+        yield rng, report
+        if "x" not in reported:
+            raise RuntimeError("iter_batches: caller did not report batch stats")
+        batcher.update(*reported["x"])
 
 
 class HitRateTracker:

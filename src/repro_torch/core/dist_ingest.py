@@ -1,9 +1,12 @@
 """Device ingest plane — writable device-resident LSM tablets for all three
 of the paper's tables (§IV-A); the port of the reference's
-core/dist_ingest.py with one tablet group.
+core/dist_ingest.py.
 
 All T tablets sit on one device as the leading dimension of every state
 tensor (the reference's shard_map over the mesh and vmap over tablets).
+The plane shards them into G tablet groups (the paper's tablet servers),
+each a contiguous tablet range with its own lock and state, so writers
+whose rows land on different groups append concurrently.
 The LSM lifecycle runs as PyTorch steps over that state:
 
     append   DistBatchWriter shards encoded events by row hash; each
@@ -38,9 +41,10 @@ new tensors, so the base and run slabs a snapshot aliases never change.
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +52,7 @@ import torch
 from . import keypack
 from .device import resolve_device
 from .dist_query import DistStore
-from .ingest import BatchWriter
+from .ingest import BatchWriter, check_shard_guidance
 from .store import DEFAULT_AGG_BUCKET_SECONDS
 from ..kernels.aggregate_combine import combine_compact
 from ..kernels.common import pow2
@@ -306,28 +310,48 @@ class _PlanePrograms:
 
 
 class TabletGroup:
-    """The plane's tablets with their lock, device state, exact host
-    mirrors (memtable fill, run-slot count), generation tags and published
-    snapshot. Everything here is guarded by ``self.lock``. (The reference
-    shards a plane into several groups; the port has one.)"""
+    """One shard of the plane: a contiguous range of ``programs.n_tablets``
+    global tablets with its own lock, device state, exact host mirrors
+    (memtable fill, run-slot count, and the per-tablet rows, minor and
+    major counters), generation tags, fold debt and published snapshot.
+    Everything here is guarded by ``self.lock``, so writers on different
+    groups never contend.
 
-    def __init__(self, programs: _PlanePrograms, m_seal, m_blocked, m_folds):
+    Global tablet ``t`` belongs to group ``t // n_tablets`` and is its
+    local tablet ``t - t0``; every array here indexes local ids. Counters
+    land on the plane's shared registry, so the per-writer blocked seconds
+    sum to the plane's scalar however one writer's waits split across
+    groups."""
+
+    def __init__(self, gid: int, n_groups: int, programs: _PlanePrograms, m_seal, m_blocked,
+                 m_folds, m_last_seal_rows, m_group_stall, m_group_stall_events):
+        self.gid = int(gid)
         self.programs = programs
-        self.n_tablets = programs.n_tablets
+        self.n_tablets = programs.n_tablets  # local (per-group) count
+        self.t0 = self.gid * self.n_tablets  # global id of local tablet 0
         self._m_seal = m_seal
         self._m_blocked = m_blocked
         self._m_folds = m_folds
-        self.lock = OwnedLock("plane_lock")
+        self._m_last_seal_rows = m_last_seal_rows
+        self._m_group_stall = m_group_stall
+        self._m_group_stall_events = m_group_stall_events
+        # A single-group plane keeps the reference's lock name; a sharded
+        # plane names each group's lock, so the occupancy books attribute
+        # contention to the group that serialized it.
+        self.lock = OwnedLock("plane_lock" if n_groups == 1 else f"plane_lock_g{self.gid}")
         self._fill = np.zeros(self.n_tablets, np.int64)  # guarded-by: lock
         self._runs_host = np.zeros(self.n_tablets, np.int32)  # guarded-by: lock
+        self._rows_host = np.zeros(self.n_tablets, np.int64)  # guarded-by: lock
+        self._minor_host = np.zeros(self.n_tablets, np.int32)  # guarded-by: lock
+        self._major_host = np.zeros(self.n_tablets, np.int32)  # guarded-by: lock
         self._dirty = True  # guarded-by: lock
         self._published: Optional[DistStore] = None  # guarded-by: lock
         # Generation per LSM level: appends bump "mem"; a minor bumps "mem"
         # and "runs"; a fold into the base bumps "runs" and "base". The
         # sealed memtable is reused while "mem" is unchanged.
         self._gen: Dict[str, int] = {"mem": 0, "runs": 0, "base": 0}  # guarded-by: lock
-        # ("mem" generation, {family: sealed (keys, cols, counts)})
-        self._sealed_cache: Optional[Tuple[int, Dict[str, tuple]]] = None  # guarded-by: lock
+        # ("mem" generation, {family: sealed (keys, cols, counts)}, seal_rows)
+        self._sealed_cache: Optional[Tuple[int, Dict[str, tuple], int]] = None  # guarded-by: lock
         self.state: Dict[str, torch.Tensor] = programs.init_state()  # guarded-by: lock
 
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
@@ -344,6 +368,9 @@ class TabletGroup:
             self.state = dict(state)
             self._fill = state["ev_mem_n"].cpu().numpy().astype(np.int64)
             self._runs_host = state["n_runs"].cpu().numpy().astype(np.int32)
+            self._rows_host = state["rows"].cpu().numpy().astype(np.int64)
+            self._minor_host = state["minor"].cpu().numpy().astype(np.int32)
+            self._major_host = state["major"].cpu().numpy().astype(np.int32)
             self._gen = {k: v + 1 for k, v in self._gen.items()}
             self._sealed_cache = None
             self._dirty = True
@@ -356,6 +383,7 @@ class TabletGroup:
         # has a free run slot.
         flushed = (self._fill > 0) & (self._runs_host < pr.max_runs)
         self._runs_host += flushed
+        self._minor_host += flushed
         self._fill = np.where(flushed, 0, self._fill)
         if flushed.any():
             self._gen["mem"] += 1
@@ -363,6 +391,7 @@ class TabletGroup:
 
     def _run_major(self) -> None:  # holds: lock
         self.state.update(self.programs.major(self.state))
+        self._major_host += self._runs_host > 0
         if self._runs_host.max() > 0:
             self._gen["runs"] += 1
             self._gen["base"] += 1
@@ -370,24 +399,43 @@ class TabletGroup:
 
     def _run_fold_one(self) -> None:  # holds: lock
         self.state.update(self.programs.fold_one(self.state))
+        # The increment that folds a tablet's last run completes a major.
+        self._major_host += self._runs_host == 1
         if self._runs_host.max() > 0:
             self._gen["runs"] += 1
             self._gen["base"] += 1
         self._runs_host = np.maximum(self._runs_host - 1, 0).astype(np.int32)
 
+    def _fence(self) -> None:  # holds: lock
+        """Wait until the card has run the work this group queued: an event
+        recorded after it on the current stream. Groups share the device's
+        one stream, so work other groups queued earlier completes too, but
+        nothing queued later is waited for."""
+        dev = self.programs.device
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            done.synchronize()
+
     # ------------------------------------------------------------- ingest
     def ingest(self, rts: np.ndarray, cols: np.ndarray, tab: np.ndarray,
                writer_id: int = 0) -> float:
-        """Append a pre-encoded batch (tab = tablet ids). Returns seconds
-        this writer spent blocked on major compactions it tripped."""
+        """Append a pre-encoded batch whose tablet ids are local to this
+        group. Returns seconds this writer spent blocked on majors it
+        tripped here; they also go to the plane's per-writer counter and,
+        keyed by group, to its stall counters."""
         n = len(rts)
         if n == 0:
             return 0.0
         with self.lock.hold("ingest_append"):
-            with span("ingest.append", cat="ingest", rows=n, writer=writer_id) as sp:
+            with span("ingest.append", cat="ingest", rows=n, writer=writer_id,
+                      group=self.gid) as sp:
                 blocked = self._ingest_locked(rts, cols, tab, n)
                 sp.set(blocked_s=blocked)
             self._m_blocked.inc(blocked, writer=writer_id)
+            if blocked > 0.0:
+                self._m_group_stall.inc(blocked, group=self.gid)
+                self._m_group_stall_events.inc(group=self.gid)
             return blocked
 
     def _ingest_locked(self, rts, cols, tab, n: int) -> float:  # holds: lock
@@ -408,17 +456,17 @@ class TabletGroup:
             if np.any(self._fill + cb > m):
                 if np.any((self._fill > 0) & (self._runs_host >= pr.max_runs)):
                     # No free run slot for a tablet that must flush: a major
-                    # first, blocking this writer (backpressure).
+                    # first, blocking this writer (backpressure) until the
+                    # card has run it.
                     t0 = time.perf_counter()
                     with self.lock.reowner("fold_increment"):
-                        with span("ingest.major", cat="ingest") as sp:
+                        with span("ingest.major", cat="ingest", group=self.gid) as sp:
                             self._run_major()
                             sp.fence(self.state["ev_base_n"])
-                        if pr.device.type == "cuda":
-                            torch.cuda.synchronize(pr.device)  # the writer waits for the fold
+                        self._fence()
                     blocked += time.perf_counter() - t0
                     self._m_folds.inc(source="ingest")
-                with span("ingest.minor", cat="ingest"):
+                with span("ingest.minor", cat="ingest", group=self.gid):
                     self._run_minor()
             if np.any(self._fill + cb > m):  # the flush above always makes room
                 raise RuntimeError("memtable has no room after a flush")
@@ -432,31 +480,34 @@ class TabletGroup:
             pr.append(self.state, rows_dev[off: off + len(tab_c)],
                       torch.from_numpy(plan).to(pr.device))
             self._fill += cb
+            self._rows_host += cb
         self._dirty = True
         self._gen["mem"] += 1
         return blocked
 
     # -------------------------------------------------------------- reads
     def snapshot(self) -> DistStore:
-        """A query-visible DistStore of every level of the three families:
-        the base and run slabs by reference, and a sealed (sorted) copy of
-        the memtables — O(live fill) device work, no fold. Reused as is when
-        nothing changed since the last snapshot; the sealed memtables are
-        reused while the "mem" generation is unchanged."""
+        """A query-visible DistStore of every level of this group's three
+        families: the base and run slabs by reference, and a sealed (sorted)
+        copy of the memtables — O(live fill) device work, no fold, under
+        this group's lock only. Reused as is when nothing changed since the
+        last snapshot; the sealed memtables are reused while the "mem"
+        generation is unchanged."""
         with self.lock.hold("publish_seal"):
             if not self._dirty and self._published is not None:
                 return self._published
             pr = self.programs
             gen_mem = self._gen["mem"]
             if self._sealed_cache is not None and self._sealed_cache[0] == gen_mem:
-                sealed = self._sealed_cache[1]
+                _, sealed, seal_rows = self._sealed_cache
                 self._m_seal.inc(event="reuse")
             else:
                 seal_rows = pr.seal_bucket(int(self._fill.max()))
-                with span("ingest.seal", cat="ingest", seal_rows=seal_rows):
+                with span("ingest.seal", cat="ingest", seal_rows=seal_rows, group=self.gid):
                     sealed = pr.seal(self.state, seal_rows)
-                self._sealed_cache = (gen_mem, sealed)
+                self._sealed_cache = (gen_mem, sealed, seal_rows)
                 self._m_seal.inc(event="seal")
+            self._m_last_seal_rows.set(seal_rows)
             s = self.state
             ev_k, ev_c, ev_n = sealed["ev"]
             levels = dict(
@@ -476,14 +527,58 @@ class TabletGroup:
                     ag_mem_k=ag_k, ag_mem_c=ag_c, ag_mem_n=ag_n,
                     agg_bucket_s=pr.agg_bucket_s,
                 )
-            self._published = DistStore(**levels)
+            self._published = DistStore(**levels, gens=dict(self._gen))
             self._dirty = False
             return self._published
 
+    # ------------------------------------------------------------- warmup
+    def warm_seal(self) -> None:
+        """Run the seal once per bucket, 8 slots up to mem_rows, on the
+        current state (results dropped), so the allocator holds every
+        bucket's buffers before a query needs them."""
+        with self.lock.hold("warmup"):
+            pr = self.programs
+            seal_rows = 8
+            while True:
+                pr.seal(self.state, seal_rows)
+                if seal_rows >= pr.mem_rows:
+                    break
+                seal_rows = min(seal_rows * 2, pr.mem_rows)
+
+    def warm_compaction(self) -> None:
+        """Run minor, one fold increment and a major once on the current
+        state. On a drained group each leaves the state as it was; staged
+        rows are drained and booked as an explicit fold, as compact()
+        would."""
+        with self.lock.hold("warmup"):
+            staged = bool(self._fill.max() or self._runs_host.max())
+            self._run_minor()
+            self._run_fold_one()
+            self._run_major()
+            if staged:
+                self._dirty = True
+                self._m_folds.inc(source="explicit")
+
+    # -------------------------------------------------------- bookkeeping
     def has_unfolded(self) -> bool:
         """True when memtables or run slots hold rows (host mirrors)."""
         with self.lock.hold("bookkeeping"):
             return bool(self._fill.max() or self._runs_host.max())
+
+    def fold_debt(self) -> int:
+        """Deepest run-slot use across this group's tablets (host mirror):
+        how close its ingest is to tripping a blocking major."""
+        with self.lock.hold("bookkeeping"):
+            return int(self._runs_host.max())
+
+    def counter_mirrors(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Copies of the per-tablet (rows, minor, major) host mirrors."""
+        with self.lock.hold("bookkeeping"):
+            return self._rows_host.copy(), self._minor_host.copy(), self._major_host.copy()
+
+    def gen_snapshot(self) -> Dict[str, int]:
+        with self.lock.hold("bookkeeping"):
+            return dict(self._gen)
 
     # --------------------------------------------------------------- fold
     def compact(self, source: str = "explicit") -> int:
@@ -493,7 +588,7 @@ class TabletGroup:
             if self._fill.max() == 0 and self._runs_host.max() == 0:
                 return 0
             passes = 0
-            with span("ingest.compact", cat="ingest", source=source):
+            with span("ingest.compact", cat="ingest", source=source, group=self.gid):
                 while True:
                     self._run_minor()
                     self._run_major()
@@ -510,10 +605,12 @@ class TabletGroup:
         when an increment ran, else 0."""
         with self.lock.hold("fold_increment"):
             if self._runs_host.max() > 0:
-                with span("ingest.fold_increment", cat="ingest", source=source, kind="fold"):
+                with span("ingest.fold_increment", cat="ingest", source=source, kind="fold",
+                          group=self.gid):
                     self._run_fold_one()
             elif self._fill.max() > 0:
-                with span("ingest.fold_increment", cat="ingest", source=source, kind="minor"):
+                with span("ingest.fold_increment", cat="ingest", source=source, kind="minor",
+                          group=self.gid):
                     self._run_minor()
             else:
                 return 0
@@ -536,9 +633,15 @@ class TabletGroup:
 class DistIngestPlane:
     """Device-resident LSM tablet grid: n_tablets tablets on one device,
     each with a memtable slab (mem_rows), max_runs sorted-run slots and a
-    base run (capacity rows), per family. The state lives in one
-    :class:`TabletGroup`; plane sharding (n_groups > 1) comes with a later
-    slice of the port.
+    base run (capacity rows), per family — sharded into ``n_groups``
+    independently locked :class:`TabletGroup`s, group g owning the
+    contiguous global range [g * T/G, (g+1) * T/G).
+
+    The plane is a facade: it routes batches to groups by tablet id,
+    composes the groups' snapshots at publish(), picks the most-indebted
+    group for compact_step() and concatenates telemetry. With n_groups=1
+    it is the single-lock plane ("plane_lock"), and publish() returns the
+    group's snapshot itself.
 
     ``device`` defaults to "cuda" and raises when CUDA is missing; the
     CPU tests pass device="cpu", which runs the kernels' plain versions."""
@@ -548,25 +651,58 @@ class DistIngestPlane:
                  indexed_fids: Sequence[int] = (),
                  agg_bucket_s: int = DEFAULT_AGG_BUCKET_SECONDS, n_groups: int = 1,
                  device="cuda"):
-        if n_groups != 1:
-            raise NotImplementedError(
-                "plane sharding (n_groups > 1) comes with a later slice of the port"
-            )
+        if n_groups < 1:
+            raise ValueError(f"n_groups must be >= 1, got {n_groups}")
+        if n_tablets % n_groups:
+            raise ValueError(f"n_groups={n_groups} must divide n_tablets={n_tablets}: each "
+                             "group owns an equal, contiguous tablet range")
         self.device = resolve_device(device)
         self.n_tablets = int(n_tablets)
+        self.n_groups = int(n_groups)
+        self.tablets_per_group = self.n_tablets // self.n_groups
         self.metrics = MetricsRegistry(f"plane{next(_plane_seq)}")
-        self._m_seal = self.metrics.counter(
+        m = self.metrics
+        self._m_seal = m.counter(
             "plane_seal_total", "publishes that ran (event=seal) vs reused (event=reuse)")
-        self._m_blocked = self.metrics.counter(
+        self._m_blocked = m.counter(
             "plane_blocked_seconds_total", "writer seconds blocked on tripped majors")
-        self._m_folds = self.metrics.counter(
+        self._m_group_stall = m.counter(
+            "plane_group_stall_seconds_total",
+            "writer seconds blocked on tripped majors, by tablet group")
+        self._m_group_stall_events = m.counter(
+            "plane_group_stall_events_total",
+            "ingest appends that tripped a blocking major, by tablet group")
+        self._m_folds = m.counter(
             "plane_fold_events_total", "run->base folds by driving source")
+        self._m_last_seal_rows = m.gauge(
+            "plane_last_seal_rows", "event-family slots the last publish sorted")
+        # Per-tablet counters from the groups' exact host mirrors, set at
+        # publish() and telemetry() (labels: global tablet id).
+        self._m_tab_rows = m.gauge("plane_tablet_rows", "rows appended per tablet (host mirror)")
+        self._m_tab_minor = m.gauge(
+            "plane_tablet_minor", "minor compactions per tablet (host mirror)")
+        self._m_tab_major = m.gauge(
+            "plane_tablet_major", "major compactions per tablet (host mirror)")
         self.programs = _PlanePrograms(
-            n_fields, capacity, n_tablets, mem_rows, max_runs, append_rows,
+            n_fields, capacity, self.tablets_per_group, mem_rows, max_runs, append_rows,
             tuple(indexed_fids), agg_bucket_s, self.device,
         )
         self.families = self.programs.families
-        self.group = TabletGroup(self.programs, self._m_seal, self._m_blocked, self._m_folds)
+        self.groups: Tuple[TabletGroup, ...] = tuple(
+            TabletGroup(g, self.n_groups, self.programs, self._m_seal, self._m_blocked,
+                        self._m_folds, self._m_last_seal_rows, self._m_group_stall,
+                        self._m_group_stall_events)
+            for g in range(self.n_groups)
+        )
+        # Session stats and the composite snapshot sit under a meta lock,
+        # never held across device work nor taken inside a group lock.
+        self._meta_lock = OwnedLock("plane_meta_lock")
+        self.session_stats: Dict[int, Dict[str, float]] = {}  # guarded-by: _meta_lock
+        self._composite: Optional[DistStore] = None  # guarded-by: _meta_lock
+        # Level generations each group had when its gauges were last set;
+        # a lock of its own, since a refresh waits on group locks.
+        self._gauge_lock = threading.Lock()
+        self._gauge_gens: List[Optional[Dict[str, int]]] = [None] * self.n_groups  # guarded-by: _gauge_lock
 
     @classmethod
     def for_store(cls, store, capacity: int, **kw) -> "DistIngestPlane":
@@ -589,63 +725,185 @@ class DistIngestPlane:
     def blocked_seconds(self) -> float:
         return self._m_blocked.total()
 
+    @blocked_seconds.setter
+    def blocked_seconds(self, v: float) -> None:
+        """Only a reset to 0 is allowed: any other value would leave the
+        per-writer cells out of step with the scalar."""
+        if v != 0:
+            raise ValueError("blocked_seconds can only be reset to 0")
+        self._m_blocked.reset()
+
+    @property
+    def blocked_by_writer(self) -> Dict[int, float]:
+        return {int(dict(key)["writer"]): v for key, v in self._m_blocked.cells().items()}
+
     @property
     def fold_events(self) -> Dict[str, int]:
         return {dict(key)["source"]: int(v) for key, v in self._m_folds.cells().items()}
 
     @property
+    def last_seal_rows(self) -> int:
+        return int(self._m_last_seal_rows.value())
+
+    # ----------------------------------------------- single-group views
+    def _single(self, what: str) -> TabletGroup:
+        if self.n_groups != 1:
+            raise RuntimeError(f"plane.{what} is ambiguous with n_groups > 1; "
+                               f"use plane.groups[g]")
+        return self.groups[0]
+
+    @property
+    def group(self) -> TabletGroup:
+        """The one group of a single-group plane."""
+        return self._single("group")
+
+    @property
     def state(self) -> Dict[str, torch.Tensor]:
-        """The device state dict."""
-        return self.group.state
+        """The device state dict of a single-group plane."""
+        return self._single("state").state
 
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
-        """Start from a given LSM state (see core/carry.py)."""
-        self.group.load_state(state)
+        """Start a single-group plane from a given LSM state (see
+        core/carry.py)."""
+        self._single("load_state").load_state(state)
 
     def state_bytes(self) -> int:
-        """Device bytes held by the plane's state."""
-        return sum(t.numel() * t.element_size() for t in self.state.values())
+        """Device bytes held by the plane's state, all groups."""
+        return sum(t.numel() * t.element_size() for g in self.groups for t in g.state.values())
 
     # ----------------------------------------------------------- ingest
     def ingest(self, rts: np.ndarray, cols: np.ndarray, tab: np.ndarray,
                writer_id: int = 0) -> float:
         """Append a pre-encoded, pre-sharded batch: rts int32 reversed
-        timestamps, cols (n, F) int32 codes, tab (n,) tablet ids. Returns
-        seconds this writer spent blocked on majors it tripped."""
+        timestamps, cols (n, F) int32 codes, tab (n,) global tablet ids.
+        Each row goes to the group owning its tablet (tab //
+        tablets_per_group), under that group's lock only. Returns seconds
+        this writer spent blocked on majors it tripped, summed over the
+        groups the batch touched."""
         rts = np.asarray(rts, np.int32)
         cols = np.asarray(cols, np.int32)
         tab = np.asarray(tab, np.int64)
         if len(tab) and (tab.min() < 0 or tab.max() >= self.n_tablets):
             raise ValueError(f"tablet ids must lie in [0, {self.n_tablets})")
-        return self.group.ingest(rts, cols, tab, writer_id=writer_id)
+        if self.n_groups == 1:
+            return self.groups[0].ingest(rts, cols, tab, writer_id=writer_id)
+        gids = tab // self.tablets_per_group
+        blocked = 0.0
+        for g in self.groups:
+            m = gids == g.gid
+            if m.any():
+                blocked += g.ingest(rts[m], cols[m], tab[m] - g.t0, writer_id=writer_id)
+        return blocked
 
     # ------------------------------------------------------------ reads
     def publish(self) -> DistStore:
         """Snapshot the plane into a query-visible DistStore (all levels,
-        no fold)."""
+        no fold), each group under its own lock only. A single-group plane
+        returns its group's snapshot; a sharded plane returns a composite
+        whose ``groups`` hold the groups' snapshots in tablet order — a
+        group clean since its last snapshot gives the same object again,
+        and when every group does, so does the composite."""
         with span("ingest.publish", cat="ingest"):
-            return self.group.snapshot()
+            if self.n_groups == 1:
+                out = self.groups[0].snapshot()
+                self._update_tablet_gauges([out.gens])
+                return out
+            subs = tuple(g.snapshot() for g in self.groups)
+            self._update_tablet_gauges([sub.gens for sub in subs])
+            with self._meta_lock.hold("publish_compose"):
+                cached = self._composite
+                if cached is not None and all(a is b for a, b in zip(cached.groups, subs)):
+                    return cached
+                self._composite = DistStore(
+                    groups=subs, gens={f"g{g.gid}": dict(sub.gens)
+                                       for g, sub in zip(self.groups, subs)})
+                return self._composite
+
+    def warm_seal(self) -> None:
+        """Run every seal bucket once on every group (TabletGroup.warm_seal)."""
+        for g in self.groups:
+            g.warm_seal()
+
+    def warm_compaction(self) -> None:
+        """Run every compaction step once on every group
+        (TabletGroup.warm_compaction)."""
+        for g in self.groups:
+            g.warm_compaction()
 
     def has_unfolded(self) -> bool:
-        return self.group.has_unfolded()
+        """True when any group's memtables or run slots hold rows."""
+        return any(g.has_unfolded() for g in self.groups)
+
+    def fold_debt(self) -> int:
+        """Deepest run-slot use across every tablet (host mirrors)."""
+        return max(g.fold_debt() for g in self.groups)
 
     def compact(self, source: str = "explicit") -> int:
-        """Fold memtables and runs into the base (see TabletGroup.compact)."""
-        return self.group.compact(source)
+        """Fold memtables and runs into the base in every group. Returns the
+        passes run, summed over groups."""
+        return sum(g.compact(source) for g in self.groups)
 
     def compact_step(self, source: str = "explicit") -> int:
-        """One bounded increment of compaction (see TabletGroup.compact_step)."""
-        return self.group.compact_step(source)
+        """One bounded increment of compaction on the most-indebted group,
+        ranked by (fold debt, staged rows), ties to the lower group id,
+        under that group's lock only. A group that drained since the
+        ranking returns 0 and the next one is tried. Returns 1 when an
+        increment ran, else 0."""
+        ranked = sorted(self.groups, key=lambda g: (g.fold_debt(), g.has_unfolded()),
+                        reverse=True)
+        for g in ranked:
+            if g.compact_step(source):
+                return 1
+        return 0
+
+    def record_session(self, session_id: int, stats: Dict[str, float]) -> None:
+        """Keep a serving session's stats for telemetry()["sessions"]: the
+        1,024 most recently reported sessions, in report order."""
+        with self._meta_lock.hold("bookkeeping"):
+            self.session_stats.pop(int(session_id), None)
+            self.session_stats[int(session_id)] = dict(stats)
+            while len(self.session_stats) > 1024:
+                self.session_stats.pop(next(iter(self.session_stats)))
+
+    def _update_tablet_gauges(self, gens: Sequence[Dict[str, int]]) -> None:
+        """Set the per-tablet gauges from the host mirrors of every group
+        whose level generations (``gens[g]``, read before this call) moved
+        since its last refresh. Each change to the rows, minor or major
+        mirrors bumps a generation, so a publish that finds every group
+        clean takes no group lock and sets nothing."""
+        with self._gauge_lock:
+            for g in self.groups:
+                if gens[g.gid] == self._gauge_gens[g.gid]:
+                    continue
+                # Read after the generations: the gauges are at least as new.
+                rows, minor, major = g.counter_mirrors()
+                for i in range(len(rows)):
+                    t = g.t0 + i
+                    self._m_tab_rows.set(float(rows[i]), tablet=t)
+                    self._m_tab_minor.set(float(minor[i]), tablet=t)
+                    self._m_tab_major.set(float(major[i]), tablet=t)
+                self._gauge_gens[g.gid] = gens[g.gid]
 
     def telemetry(self) -> Dict[str, object]:
-        """Per-tablet device counters plus the plane's metric views."""
-        out: Dict[str, object] = dict(self.group.telemetry_arrays())
+        """Per-tablet device counters in global tablet order, plus the
+        plane's metric views: blocked seconds (in all and per writer), the
+        sessions' stats, fold events, the level generations (per group,
+        keyed "g<i>", on a sharded plane) and the seal counts."""
+        parts = [g.telemetry_arrays() for g in self.groups]
+        out: Dict[str, object] = {name: np.concatenate([p[name] for p in parts])
+                                  for name in parts[0]}
         out["blocked_seconds"] = float(self.blocked_seconds)
+        out["blocked_seconds_per_writer"] = self.blocked_by_writer
+        with self._meta_lock.hold("bookkeeping"):
+            out["sessions"] = {k: dict(v) for k, v in self.session_stats.items()}
         out["fold_events"] = self.fold_events
-        with self.group.lock.hold("bookkeeping"):
-            out["level_gen"] = dict(self.group._gen)
+        if self.n_groups == 1:
+            out["level_gen"] = self.groups[0].gen_snapshot()
+        else:
+            out["level_gen"] = {f"g{g.gid}": g.gen_snapshot() for g in self.groups}
         out["seal_events"] = self.seal_events
         out["seal_reuses"] = self.seal_reuses
+        self._update_tablet_gauges([g.gen_snapshot() for g in self.groups])
         return out
 
 
@@ -680,3 +938,9 @@ class DistBatchWriter(BatchWriter):
         tab = (h % self.plane.n_tablets).astype(np.int32)
         rts = keypack.rev_ts(ts).astype(np.int32)
         return self.plane.ingest(rts, cols, tab, writer_id=int(self._writer_id))
+
+
+def check_tablet_guidance(n_tablets: int, n_writers: int) -> bool:
+    """The paper's sizing rule on the device plane: at least half as many
+    tablets as parallel writers."""
+    return check_shard_guidance(n_tablets, n_writers)

@@ -1,7 +1,7 @@
 """Device query execution — the paper's four §IV-B schemes (scan, batched
 scan, index, batched index) over a published snapshot of the ingest
-plane; the port of the reference's core/dist_query.py with one tablet
-group on one device.
+plane or of a bulk replay; the port of the reference's
+core/dist_query.py on one device.
 
 All T tablets sit on one device as a leading dimension (the reference's
 shard_map over the mesh and vmap over tablets). One adaptive batch is one
@@ -40,9 +40,12 @@ for index-mode plans the index aggregate step reduces only the gathered
 candidate rows, falling back to the aggregate step on truncation.
 
 Every read searches ALL LSM levels of the snapshot — the base, the K
-sorted-run slabs and the sealed memtable — so publish() never folds. A
-query's filter program is prepared on the device once (a
-kernels.program_eval.Program) and every step of the query reuses it.
+sorted-run slabs and the sealed memtable — so publish() never folds; a
+base-only snapshot (from_event_store) has the base alone. A sharded
+plane publishes a composite snapshot, and every read fans out over its
+groups' sub-snapshots. A query's filter program is prepared on the
+device once (a kernels.program_eval.Program) and every step, on every
+sub-snapshot, reuses it.
 """
 from __future__ import annotations
 
@@ -93,19 +96,28 @@ class DistStore:
     live count; run slots may hold stale rows past their counts after a
     major, so every search clamps by the live counts. The ix/ag fields are
     None for a plane without indexed fields; the processor then plans
-    every query as a filter scan. density_cache memoizes the planner's
-    density reads for the life of this (immutable) snapshot.
+    every query as a filter scan. The run and memtable fields are None
+    for a base-only snapshot (a from_event_store bulk replay, folded up
+    front); reads then search the base alone. density_cache memoizes the
+    planner's density reads for the life of this (immutable) snapshot.
+
+    A composite snapshot (a sharded plane's publish) has every level field
+    None and holds the groups' sub-snapshots in ``groups``, in global
+    tablet order; ``gens`` maps "g<i>" to each group's level generations.
+    Each sub-snapshot keeps its own density_cache, so a group clean since
+    the last publish keeps its densities. A plane's snapshot carries its
+    level generations ({"mem", "runs", "base"}) in ``gens``.
     """
 
-    rev_ts: torch.Tensor
-    cols: torch.Tensor
-    counts: torch.Tensor
-    run_rev_ts: torch.Tensor
-    run_cols: torch.Tensor
-    run_counts: torch.Tensor
-    mem_rev_ts: torch.Tensor
-    mem_cols: torch.Tensor
-    mem_counts: torch.Tensor
+    rev_ts: Optional[torch.Tensor] = None
+    cols: Optional[torch.Tensor] = None
+    counts: Optional[torch.Tensor] = None
+    run_rev_ts: Optional[torch.Tensor] = None
+    run_cols: Optional[torch.Tensor] = None
+    run_counts: Optional[torch.Tensor] = None
+    mem_rev_ts: Optional[torch.Tensor] = None
+    mem_cols: Optional[torch.Tensor] = None
+    mem_counts: Optional[torch.Tensor] = None
     ix_keys: Optional[torch.Tensor] = None
     ix_counts: Optional[torch.Tensor] = None
     ix_run_k: Optional[torch.Tensor] = None
@@ -122,38 +134,69 @@ class DistStore:
     ag_mem_c: Optional[torch.Tensor] = None
     ag_mem_n: Optional[torch.Tensor] = None
     agg_bucket_s: Optional[int] = None
+    gens: Optional[Dict[str, object]] = None
+    groups: Optional[Tuple["DistStore", ...]] = None
     density_cache: Dict[Tuple, int] = field(default_factory=dict, repr=False)
 
     @property
+    def is_composite(self) -> bool:
+        return self.groups is not None
+
+    @property
+    def n_tablets(self) -> int:
+        if self.groups is not None:
+            return sum(g.n_tablets for g in self.groups)
+        return self.rev_ts.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        if self.groups is not None:
+            return self.groups[0].capacity
+        return self.rev_ts.shape[1]
+
+    @property
     def device(self) -> torch.device:
+        if self.groups is not None:
+            return self.groups[0].device
         return self.rev_ts.device
 
     @property
     def has_index(self) -> bool:
+        if self.groups is not None:
+            return self.groups[0].has_index
         return self.ix_keys is not None
 
     @property
     def has_runs(self) -> bool:
-        """True for every snapshot the port publishes: the plane's publish
-        carries the run and sealed-memtable levels (the reference's
-        base-only bulk replay is not ported)."""
+        """True when the snapshot carries run and sealed-memtable levels (a
+        plane's publish); False for a base-only snapshot."""
+        if self.groups is not None:
+            return self.groups[0].has_runs
         return self.run_rev_ts is not None
 
     def ev_levels(self):
-        """(rev_ts, cols, live counts) of the base, runs and memtable."""
-        return ((self.rev_ts, self.cols, self.counts),
-                (self.run_rev_ts, self.run_cols, self.run_counts),
+        """(rev_ts, cols, live counts) of the base, then of the runs and the
+        memtable when the snapshot has them."""
+        base = (self.rev_ts, self.cols, self.counts)
+        if not self.has_runs:
+            return (base,)
+        return (base, (self.run_rev_ts, self.run_cols, self.run_counts),
                 (self.mem_rev_ts, self.mem_cols, self.mem_counts))
 
     def ix_levels(self):
-        """(keys, live counts) of the index base, runs and memtable."""
-        return ((self.ix_keys, self.ix_counts), (self.ix_run_k, self.ix_run_n),
-                (self.ix_mem_k, self.ix_mem_n))
+        """(keys, live counts) of the index levels, as ev_levels."""
+        base = (self.ix_keys, self.ix_counts)
+        if not self.has_runs:
+            return (base,)
+        return (base, (self.ix_run_k, self.ix_run_n), (self.ix_mem_k, self.ix_mem_n))
 
     def ag_levels(self):
-        """(keys, counts (..., C, 1), live counts) of the aggregate levels."""
-        return ((self.ag_keys, self.ag_vals, self.ag_counts),
-                (self.ag_run_k, self.ag_run_c, self.ag_run_n),
+        """(keys, counts (..., C, 1), live counts) of the aggregate levels,
+        as ev_levels."""
+        base = (self.ag_keys, self.ag_vals, self.ag_counts)
+        if not self.has_runs:
+            return (base,)
+        return (base, (self.ag_run_k, self.ag_run_c, self.ag_run_n),
                 (self.ag_mem_k, self.ag_mem_c, self.ag_mem_n))
 
 
@@ -171,10 +214,13 @@ def _in_range(keys: torch.Tensor, probe: torch.Tensor, live: torch.Tensor) -> to
     return (idx >= a[..., None]) & (idx < b[..., None]) & (idx < live[..., None])
 
 
-def _sum_levels(base: torch.Tensor, runs: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
-    """Per-tablet int32 sum of a per-level quantity: base (T,), runs (T, K),
-    mem (T,)."""
-    return base + runs.sum(dim=1, dtype=torch.int32) + mem
+def _sum_levels(*parts: torch.Tensor) -> torch.Tensor:
+    """Per-tablet int32 sum of a per-level quantity: (T,) for the base and
+    the memtable, (T, K) for the runs."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + (p.sum(dim=1, dtype=torch.int32) if p.dim() == 2 else p)
+    return total
 
 
 def _filter_topk(rev, cols, hit, top_k: int):
@@ -208,15 +254,14 @@ def _merge_level_topk(rev_parts: List[torch.Tensor], col_parts: List[torch.Tenso
 
 
 def _merged_slates(parts, top_k: int):
-    """Per-level (count, rev, cols) triples of the base, runs and memtable
-    -> int32 (T,) counts and the merged (T, k) ts (-1 where none) and
-    (T, k, F) cols."""
-    (c0, r0, l0), (cr, rr, lr), (cm, rm, lm) = parts
-    t, f = r0.shape[0], l0.shape[-1]
-    out_rev, out_cols = _merge_level_topk([r0, rr.reshape(t, -1), rm],
-                                          [l0, lr.reshape(t, -1, f), lm], top_k)
+    """Per-level (count, rev, cols) triples of the snapshot's levels ->
+    int32 (T,) counts and the merged (T, k) ts (-1 where none) and (T, k,
+    F) cols."""
+    t, f = parts[0][1].shape[0], parts[0][2].shape[-1]
+    out_rev, out_cols = _merge_level_topk([r.reshape(t, -1) for _, r, _ in parts],
+                                          [c.reshape(t, -1, f) for _, _, c in parts], top_k)
     out_ts = torch.where(out_rev < _I32_MAX, out_rev, INVALID_TS)
-    return _sum_levels(c0, cr, cm), out_ts, out_cols
+    return _sum_levels(*(c for c, _, _ in parts)), out_ts, out_cols
 
 
 def scan_step(d: DistStore, program, rts_lo: int, rts_hi: int, top_k: int = 128):
@@ -275,12 +320,12 @@ def _posting_slabs(d: DistStore, lo, hi, max_postings: int):
     and condition, and the slates sort into one slab. Returns the int32
     (T, n_conds, S) slabs, S the sum of the per-level caps, and the int32
     (T,) postings dropped at the caps."""
-    (s0, o0), (sr, orr), (sm, om) = (_postings(k, n, lo, hi, max_postings)
-                                     for k, n in d.ix_levels())
-    t, nc = s0.shape[:2]
-    slabs = torch.cat([s0, sr.transpose(1, 2).reshape(t, nc, -1), sm], dim=-1)
-    over = _sum_levels(o0.sum(dim=1, dtype=torch.int32), orr.sum(dim=2, dtype=torch.int32),
-                       om.sum(dim=1, dtype=torch.int32))
+    parts = [_postings(k, n, lo, hi, max_postings) for k, n in d.ix_levels()]
+    t, nc = parts[0][0].shape[:2]
+    # A run level's (T, K, n_conds, cap) slates line up per condition.
+    slabs = torch.cat([s if s.dim() == 3 else s.transpose(1, 2).reshape(t, nc, -1)
+                       for s, _ in parts], dim=-1)
+    over = _sum_levels(*(o.sum(dim=-1, dtype=torch.int32) for _, o in parts))
     return torch.sort(slabs, dim=-1).values, over
 
 
@@ -336,7 +381,7 @@ def _expand_level(cand, live, rev, cols, nn, max_rows: int):
 
 
 def _expand_levels(cand, live, d: DistStore, max_rows: int):
-    """_expand_level over the base, runs and memtable of the event family."""
+    """_expand_level over every level of the event family."""
     return [_expand_level(cand, live, rev, cols, nn, max_rows) for rev, cols, nn in d.ev_levels()]
 
 
@@ -569,22 +614,33 @@ class QueryRun:
 
 class DistQueryProcessor:
     """The four schemes of §IV-B and scan-time aggregation
-    (aggregate_range) over a live DistIngestPlane: every query syncs to
-    the plane's latest published snapshot, so rows written through
-    DistBatchWriter are visible with no host round trip. The planner reads
-    its densities from the snapshot's aggregate tablets (agg_count), and
-    index-mode plans run index_step per batch; a plane without indexed
+    (aggregate_range) over a live DistIngestPlane or a static snapshot.
+    With ``plane``, every query syncs to the plane's latest published
+    snapshot, so rows written through DistBatchWriter are visible with no
+    host round trip; with ``dist`` (a from_event_store replay, or a pinned
+    publish) every query reads that snapshot. The planner reads its
+    densities from the snapshot's aggregate tablets (agg_count), and
+    index-mode plans run index_step per batch; a snapshot without indexed
     fields answers every scheme by scanning.
 
-    ``device`` must be the plane's device (default "cuda"; the CPU tests
-    pass "cpu"). ``w`` is the planner's threshold; ``index_postings`` and
-    ``index_rows`` cap the index step's posting and row slabs per level."""
+    ``device`` must be the plane's or the snapshot's device (default
+    "cuda"; the CPU tests pass "cpu"). ``w`` is the planner's threshold;
+    ``index_postings`` and ``index_rows`` cap the index step's posting and
+    row slabs per level."""
 
-    def __init__(self, store: EventStore, plane, top_k: int = 128, w: float = 10.0,
-                 index_postings: int = 2048, index_rows: int = 4096, device="cuda"):
+    def __init__(self, store: EventStore, plane=None, top_k: int = 128, w: float = 10.0,
+                 index_postings: int = 2048, index_rows: int = 4096, device="cuda",
+                 dist: Optional[DistStore] = None):
         dev = resolve_device(device)
-        if dev != plane.device:
-            raise ValueError(f"processor device {dev} is not the plane's device {plane.device}")
+        if dist is None:
+            if plane is None:
+                raise ValueError("need dist= or plane=")
+            if dev != plane.device:
+                raise ValueError(f"processor device {dev} is not the plane's device "
+                                 f"{plane.device}")
+            dist = plane.publish()
+        elif dev != dist.device:
+            raise ValueError(f"processor device {dev} is not the snapshot's device {dist.device}")
         self.store = store
         self.plane = plane
         self.device = dev
@@ -592,11 +648,13 @@ class DistQueryProcessor:
         self.w = w
         self.index_postings = index_postings
         self.index_rows = index_rows
-        self.dist = plane.publish()
+        self.dist = dist
 
     def _sync(self) -> DistStore:
-        """Refresh to the plane's latest published snapshot and return it."""
-        self.dist = self.plane.publish()
+        """Refresh to the plane's latest published snapshot (if there is a
+        plane) and return the snapshot to pin."""
+        if self.plane is not None:
+            self.dist = self.plane.publish()
         return self.dist
 
     # ------------------------------------------------ planner density source
@@ -624,6 +682,14 @@ class DistQueryProcessor:
         hit = d.density_cache.get(ckey)
         if hit is not None:
             return hit
+        if d.groups is not None:
+            # Densities sum over the disjoint groups, each memoized in its
+            # own sub-snapshot, which outlives this composite while its
+            # group stays clean.
+            out = sum(self._agg_count_on(sub, field, value, t_start, t_stop)
+                      for sub in d.groups)
+            d.density_cache[ckey] = out
+            return out
         code = self.store.dictionaries[field].lookup(value)
         if code is None:
             d.density_cache[ckey] = 0
@@ -653,6 +719,13 @@ class DistQueryProcessor:
         d = dist if dist is not None else self._sync()
         if program is None:
             program = self._program(tree, d.device)
+        if d.groups is not None:
+            # One step per group: counts sum and the top-k slates
+            # concatenate (unordered across tablets, so across groups).
+            parts = [self.scan_range(tree, t0, t1, dist=sub, program=program)
+                     for sub in d.groups]
+            return (sum(c for c, _, _ in parts), np.concatenate([p[1] for p in parts]),
+                    np.concatenate([p[2] for p in parts]))
         rts_lo = int(keypack.rev_ts(t1))
         rts_hi = int(keypack.rev_ts(t0)) + 1
         with span("query.scan_range", cat="query") as sp:
@@ -691,6 +764,14 @@ class DistQueryProcessor:
         d = dist if dist is not None else self._sync()
         if program is None:
             program = self._program(tree, d.device)
+        if d.groups is not None:
+            # Every group holds postings of the conditions: counts,
+            # truncation and candidates sum, and the slates concatenate.
+            parts = [self.scan_index_range(plan, tree, t0, t1, dist=sub, program=program)
+                     for sub in d.groups]
+            return (sum(p[0] for p in parts), np.concatenate([p[1] for p in parts]),
+                    np.concatenate([p[2] for p in parts]), sum(p[3] for p in parts),
+                    sum(p[4] for p in parts))
         lo, hi = self._cond_ranges(plan, t0, t1)
         ranges = torch.from_numpy(np.stack([lo, hi])).to(d.device)
         with span("query.scan_index_range", cat="query") as sp:
@@ -773,18 +854,27 @@ class DistQueryProcessor:
         if plan.mode == "empty":
             e = np.empty(0, np.int64)
             return AggregateResult(grouping, e, e.copy(), e.copy())
-        aggs, cnts = self._agg_range_on(d, plan, grouping, tree, t0, t1, stats)
-        return self._materialize_agg(grouping, aggs, cnts)
-
-    def _agg_range_on(self, d: DistStore, plan: QueryPlan, grouping: ResolvedGrouping,
-                      tree, t0: int, t1: int, stats: Optional[QueryStats] = None):
-        """One snapshot's aggregation as dense (aggs, cnts) device tensors:
-        the index aggregate step for index-mode plans, rerun as the exact
-        aggregate step when it truncated (a query.aggregate_scan span inside
-        an index-mode plan is such a fallback)."""
+        # One program and one value table serve every group. A composite
+        # folds the groups' dense partials on the device: rows are disjoint
+        # across groups, so sums and counts add and min/max fold
+        # elementwise (each group falls back to the scan aggregation on its
+        # own).
         program = self._program(tree, d.device)
         vt = grouping.value_table if grouping.value_table is not None else np.ones(1, np.int32)
         value_table = torch.from_numpy(vt).to(d.device)
+        subs = d.groups if d.groups is not None else (d,)
+        parts = [self._agg_range_on(sub, plan, grouping, tree, t0, t1, program, value_table,
+                                    stats) for sub in subs]
+        aggs, cnts = _combine_level_aggs(parts, grouping.spec.op)
+        return self._materialize_agg(grouping, aggs, cnts)
+
+    def _agg_range_on(self, d: DistStore, plan: QueryPlan, grouping: ResolvedGrouping,
+                      tree, t0: int, t1: int, program, value_table,
+                      stats: Optional[QueryStats] = None):
+        """One (sub-)snapshot's aggregation as dense (aggs, cnts) device
+        tensors: the index aggregate step for index-mode plans, rerun as
+        the exact aggregate step when it truncated (a query.aggregate_scan
+        span inside an index-mode plan is such a fallback)."""
         if plan.mode == "index" and d.has_index:
             lo, hi = self._cond_ranges(plan, t0, t1)
             ranges = torch.from_numpy(np.stack([lo, hi])).to(d.device)
@@ -802,3 +892,74 @@ class DistQueryProcessor:
                                         int(keypack.rev_ts(t1)), int(keypack.rev_ts(t0)) + 1)
             sp.fence(cnts)
         return aggs, cnts
+
+    def execute_batched(self, tree, t_start: int, t_stop: int,
+                        stats: Optional[QueryStats] = None):
+        """Algorithm 2 over the device scan, pinned to one snapshot: a list
+        of (count, ts, cols) per adaptive batch."""
+        d = self._sync()
+        program = self._program(tree, d.device)
+        rps = self.store.rows_per_second()
+        batcher = AdaptiveBatcher(t_start=t_start, t_stop=t_stop, b0=rps and 10.0 / rps)
+        results = []
+        while not batcher.done:
+            lo, hi = batcher.next_range()
+            t0 = time.perf_counter()
+            count, ts, cols = self.scan_range(tree, int(lo), int(hi), dist=d, program=program)
+            batcher.update(time.perf_counter() - t0, count)
+            results.append((count, ts, cols))
+            if stats is not None:
+                stats.batches += 1
+                stats.rows += count
+        return results
+
+
+def from_event_store(store: EventStore, capacity: Optional[int] = None, n_tablets: int = 1,
+                     device="cuda") -> DistStore:
+    """Re-shard a host EventStore's event tables onto the device by row
+    hash (the paper's uniform random sharding), as a bulk replay through a
+    DistIngestPlane: its appends and compactions build the sorted tablets
+    and the index and aggregate families, and compact() folds everything
+    into the base. Returns a base-only snapshot. Raises ValueError before
+    the replay when ``capacity`` cannot hold the fullest tablet; by
+    default the capacity is that tablet's row count."""
+    from .dist_ingest import DistIngestPlane
+
+    rows_k, rows_c = [], []
+    for tab in store.event_tablets:
+        for run in tab.snapshot_runs():
+            _, rts, h = keypack.unpack_event_key(run.keys)
+            rows_k.append(np.stack([rts, h], 1))
+            rows_c.append(run.cols)
+    if rows_k:
+        rk = np.concatenate(rows_k)
+        rc = np.concatenate(rows_c)
+    else:
+        rk = np.zeros((0, 2), np.int64)
+        rc = np.zeros((0, store.schema.n_fields), np.int32)
+    assign = (rk[:, 1] % n_tablets).astype(np.int64)  # hash-uniform tablet choice
+    most = int(np.bincount(assign, minlength=n_tablets).max())
+    cap = capacity or max(most, 1)
+    if most > cap:
+        raise ValueError(f"tablet overflow: {most} rows for one tablet over capacity {cap}")
+    # Per-tablet flush triggers are exact, so fixed slabs suffice: a tablet
+    # majors every max_runs * mem_rows of its own rows.
+    plane = DistIngestPlane.for_store(store, capacity=cap, n_tablets=n_tablets, mem_rows=8192,
+                                      max_runs=8, append_rows=2048, device=device)
+    plane.ingest(rk[:, 0].astype(np.int32), rc, assign)
+    plane.compact()
+    tel = plane.telemetry()
+    overflow = sum(int(v.sum()) for k, v in tel.items() if k.endswith("overflow"))
+    if overflow:  # the pre-check above bounds this; a plane-side loss must not pass
+        raise ValueError(f"tablet overflow: {overflow} rows over capacity {cap}")
+    s = plane.state
+    has_ix = len(plane.families) > 1
+    return DistStore(
+        rev_ts=s["ev_base_k"], cols=s["ev_base_c"], counts=s["ev_base_n"],
+        ix_keys=s["ix_base_k"] if has_ix else None,
+        ix_counts=s["ix_base_n"] if has_ix else None,
+        ag_keys=s["ag_base_k"] if has_ix else None,
+        ag_vals=s["ag_base_c"] if has_ix else None,
+        ag_counts=s["ag_base_n"] if has_ix else None,
+        agg_bucket_s=plane.programs.agg_bucket_s if has_ix else None,
+    )

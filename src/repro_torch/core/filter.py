@@ -1,9 +1,11 @@
 """Filter condition trees and their compilation to the device predicate
-program; a copy of the reference's core/filter.py cut to the nodes this
-package's paths build (Eq, In, And, Or, Not, TrueNode).
+program; a copy of the reference's core/filter.py.
 
 The tree compiles to a postfix program over a boolean stack (opcodes in
 kernels/program_eval.py), the format the ``filter_scan`` kernel runs.
+String conditions resolve to dictionary code sets on the host (Match to
+the codes of its prefix, Cmp on a numeric-string field to the codes whose
+value passes the comparison), so the device only compares int32 codes.
 """
 from __future__ import annotations
 
@@ -31,6 +33,25 @@ class Node:
 class Eq(Node):
     field: str
     value: str
+
+
+@dataclass(frozen=True)
+class Cmp(Node):
+    """Inequality on a numeric-string field (the paper's 'field1 <
+    value1'); op is one of '<', '<=', '>', '>='."""
+
+    field: str
+    op: str
+    value: float
+
+
+@dataclass(frozen=True)
+class Match(Node):
+    """Prefix match: the host-resolvable core of the paper's regex
+    conditions."""
+
+    field: str
+    prefix: str
 
 
 @dataclass(frozen=True)
@@ -104,11 +125,9 @@ class _Compiler:
             else:
                 self.ops.append((OP_PUSH_EQ, fid, int(code)))
             return 1
-        if isinstance(node, In):
+        if isinstance(node, (Match, In, Cmp)):
             fid = self.store.schema.field_id(node.field)
-            d = self.store.dictionaries[node.field]
-            codes = [d.lookup(v) for v in node.values]
-            codes = np.asarray([c for c in codes if c is not None], dtype=np.int32)
+            codes = resolve_codes(self.store, node)
             self.ops.append((OP_PUSH_IN, fid, self._codeset(codes)))
             return 1
         if isinstance(node, Not):
@@ -125,6 +144,38 @@ class _Compiler:
                 self.ops.append((opc, 0, 0))
             return depth
         raise TypeError(f"unknown node {node!r}")
+
+
+_CMP = {
+    "<": lambda x, v: x < v,
+    "<=": lambda x, v: x <= v,
+    ">": lambda x, v: x > v,
+    ">=": lambda x, v: x >= v,
+}
+
+
+def resolve_codes(store, node: Node) -> np.ndarray:
+    """The int32 code set of a Match, In or Cmp condition, in dictionary
+    order (Match, Cmp) or the order of the values (In)."""
+    d = store.dictionaries[node.field]
+    if isinstance(node, Match):
+        return d.prefix_codes(node.prefix)
+    if isinstance(node, In):
+        codes = [d.lookup(v) for v in node.values]
+        return np.asarray([c for c in codes if c is not None], dtype=np.int32)
+    if isinstance(node, Cmp):
+        # An unknown op matches nothing, as in the reference.
+        test = _CMP.get(node.op, lambda x, v: False)
+        out = []
+        for s, c in d._fwd.items():
+            try:
+                x = float(s)
+            except ValueError:
+                continue
+            if test(x, node.value):
+                out.append(c)
+        return np.asarray(out, dtype=np.int32)
+    raise TypeError(node)
 
 
 def compile_tree(store, tree: Optional[Node]) -> FilterProgram:
@@ -146,3 +197,29 @@ def compile_tree(store, tree: Optional[Node]) -> FilterProgram:
         codesets=codesets,
         max_depth=depth,
     )
+
+
+def eval_tree_rows(store, tree: Optional[Node], cols: np.ndarray) -> np.ndarray:
+    """Host oracle: the tree evaluated over (n, n_fields) int32 code rows."""
+    if tree is None or isinstance(tree, TrueNode):
+        return np.ones(cols.shape[0], dtype=bool)
+    if isinstance(tree, Eq):
+        code = store.dictionaries[tree.field].lookup(tree.value)
+        fid = store.schema.field_id(tree.field)
+        if code is None:
+            return np.zeros(cols.shape[0], dtype=bool)
+        return cols[:, fid] == code
+    if isinstance(tree, (Match, In, Cmp)):
+        fid = store.schema.field_id(tree.field)
+        return np.isin(cols[:, fid], resolve_codes(store, tree))
+    if isinstance(tree, Not):
+        return ~eval_tree_rows(store, tree.child, cols)
+    if isinstance(tree, (And, Or)):
+        out = eval_tree_rows(store, tree.children[0], cols)
+        for c in tree.children[1:]:
+            if isinstance(tree, And):
+                out &= eval_tree_rows(store, c, cols)
+            else:
+                out |= eval_tree_rows(store, c, cols)
+        return out
+    raise TypeError(tree)

@@ -75,3 +75,8 @@ class BatchWriter:
 
     def close(self) -> None:
         self.flush()
+
+
+def check_shard_guidance(n_shards: int, n_clients: int) -> bool:
+    """The paper's sizing rule: N >= clients / 2."""
+    return n_shards >= n_clients / 2

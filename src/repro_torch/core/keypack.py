@@ -23,6 +23,7 @@ TS_MAX = (1 << TS_BITS) - 1
 HASH_MAX = (1 << HASH_BITS) - 1
 MAX_FIELDS = 1 << FIELD_BITS
 MAX_VALUES = 1 << VALUE_BITS
+BUCKET_MAX = (1 << BUCKET_BITS) - 1
 
 _EV_SHARD_SHIFT = TS_BITS + HASH_BITS
 _EV_TS_SHIFT = HASH_BITS
@@ -72,11 +73,35 @@ def pack_index_key(field, value, rts):
     return (field << IX_FIELD_SHIFT) | (value << IX_VALUE_SHIFT) | rts
 
 
+def unpack_index_key(key):
+    key = np.asarray(key, dtype=np.int64)
+    field = key >> IX_FIELD_SHIFT
+    value = (key >> IX_VALUE_SHIFT) & (MAX_VALUES - 1)
+    rts = key & TS_MAX
+    return field, value, rts
+
+
+def index_key_range(field, value, t_start, t_stop):
+    """[lo, hi) of packed index keys for one (field, value) over a time
+    range."""
+    lo = pack_index_key(field, value, rev_ts(t_stop))
+    hi = pack_index_key(field, value, rev_ts(t_start)) + 1
+    return lo, hi
+
+
 def pack_agg_key(field, value, bucket):
     field = np.asarray(field, dtype=np.int64)
     value = np.asarray(value, dtype=np.int64)
     bucket = np.asarray(bucket, dtype=np.int64)
     return (field << AG_FIELD_SHIFT) | (value << AG_VALUE_SHIFT) | bucket
+
+
+def unpack_agg_key(key):
+    key = np.asarray(key, dtype=np.int64)
+    field = key >> AG_FIELD_SHIFT
+    value = (key >> AG_VALUE_SHIFT) & (MAX_VALUES - 1)
+    bucket = key & BUCKET_MAX
+    return field, value, bucket
 
 
 def short_hash(*cols):

@@ -49,6 +49,17 @@ class FieldDictionary:
     def decode(self, code: int) -> str:
         return self._rev[int(code)]
 
+    def decode_many(self, codes) -> List[str]:
+        return [self._rev[int(c)] for c in codes]
+
+    def prefix_codes(self, prefix: str) -> np.ndarray:
+        """All codes whose value starts with ``prefix``, in insertion order:
+        the host-side resolution of a Match condition."""
+        return np.asarray(
+            [c for s, c in self._fwd.items() if s.startswith(prefix)],
+            dtype=np.int32,
+        )
+
     def __len__(self):
         return len(self._rev)
 

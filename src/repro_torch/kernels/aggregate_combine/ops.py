@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..build import check, load_library
+from ..common import count_launch
 from .ref import combine_blocks_ref, combine_compact_ref
 
 # Kernel launches since the last reset (chip_smoke.py zeroes it before a
@@ -66,8 +67,7 @@ def combine_blocks(keys: torch.Tensor, counts: torch.Tensor):
     check(getattr(lib, _ENTRY[counts.dtype])(
         k2.data_ptr(), c2.data_ptr(), rows, n, heads.data_ptr(), sums.data_ptr(),
         last.data_ptr(), stream), "aggregate_combine")
-    global launches
-    launches += 1
+    count_launch(globals())
     return heads, sums
 
 
@@ -123,8 +123,7 @@ def combine_compact(keys: torch.Tensor, counts: Optional[torch.Tensor], n_live: 
         k.data_ptr(), ptr(c), 0 if c is None else c.element_size(), live.data_ptr(), t, n,
         cap, sentinel, first.data_ptr(), ptr(carry), ukeys.data_ptr(), ptr(sums),
         n_unique.data_ptr(), stream), "combine_compact")
-    global launches
-    launches += 1
+    count_launch(globals())
     return ukeys, sums, n_unique
 
 

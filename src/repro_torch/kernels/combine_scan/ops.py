@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..build import check, load_library, shared_optin_bytes
+from ..common import count_launch
 from ..filter_scan.ops import program_tensors
 from ..program_eval import OP_PUSH_TRUE, Program, as_program
 from .ref import combine_scan_ref
@@ -104,8 +105,7 @@ def combine_segments(keys, vals, cols, program, *rest):
         cols.shape[1], program.words.data_ptr(), program.n_ops, program.header_words, staged,
         OPS[op], heads.data_ptr(), aggs.data_ptr(), cnts.data_ptr(), last.data_ptr(), stream),
         "combine_scan")
-    global launches
-    launches += 1
+    count_launch(globals())
     return heads, aggs, cnts
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..build import check, load_library, shared_optin_bytes
-from ..common import pow2
+from ..common import count_launch, pow2
 from ..program_eval import OP_NOP, Program, as_program, prepare_program
 from .ref import filter_scan_ref
 
@@ -95,8 +95,7 @@ def filter_scan_levels(levels: Sequence[torch.Tensor], program) -> List[torch.Te
             (ctypes.c_longlong * n)(*sizes), n, f, program.words.data_ptr(),
             program.n_ops, program.header_words, program.staged_words(shared_optin_bytes()),
             torch.cuda.current_stream(dev).cuda_stream), "filter_scan")
-        global launches
-        launches += 1
+        count_launch(globals())
     return [o.view(cols.shape[:-1]) for o, cols in zip(outs, levels)]
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..build import check, load_library
+from ..common import count_launch
 from .ref import member_mask_keys
 
 # Kernel launches since the last reset (chip_smoke.py zeroes it before a
@@ -53,8 +54,7 @@ def member_mask(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ),
         "merge_intersect",
     )
-    global launches
-    launches += 1
+    count_launch(globals())
     return out
 
 

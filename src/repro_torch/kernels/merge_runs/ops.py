@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..build import check, load_library
+from ..common import count_launch
 from .ref import merge_ranks_ref
 
 # Kernel launches since the last reset (chip_smoke.py zeroes it before the
@@ -78,8 +79,7 @@ def merge_ranks(keys: torch.Tensor, bounds: Sequence[int], lengths: torch.Tensor
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     check(fn(keys.data_ptr(), (ctypes.c_longlong * (k + 1))(*bounds), lengths.data_ptr(),
              out.data_ptr(), b, k, n, stream), "merge_ranks")
-    global launches
-    launches += 1
+    count_launch(globals())
     return out
 
 

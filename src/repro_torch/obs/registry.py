@@ -1,4 +1,4 @@
-"""Typed metrics: counters with label sets; the part of the
+"""Typed metrics: counters and gauges with label sets; the part of the
 reference's obs/registry.py the ingest plane uses. Each metric keeps one
 cell per distinct label tuple; a plane owns a private registry, so two
 planes in one process never share cells."""
@@ -16,6 +16,8 @@ def _label_key(labels: Dict[str, object]) -> LabelKey:
 
 class Counter:
     """Float accumulator per label set."""
+
+    kind = "counter"
 
     def __init__(self, name: str, help: str = "") -> None:
         self.name = name
@@ -40,19 +42,56 @@ class Counter:
         with self._lock:
             return dict(self._cells)
 
+    def reset(self, **labels: object) -> None:
+        """Drop one cell, or every cell when no labels are given."""
+        with self._lock:
+            if labels:
+                self._cells.pop(_label_key(labels), None)
+            else:
+                self._cells.clear()
+
+
+class Gauge(Counter):
+    """A value per label set that may move both ways; ``set`` is the
+    primary verb."""
+
+    kind = "gauge"
+
+    def set(self, v: float, **labels: object) -> None:
+        key = _label_key(labels)
+        with self._lock:
+            self._cells[key] = float(v)
+
+    def max(self, v: float, **labels: object) -> None:
+        """Keep the running maximum."""
+        key = _label_key(labels)
+        with self._lock:
+            cur = self._cells.get(key)
+            if cur is None or v > cur:
+                self._cells[key] = float(v)
+
 
 class MetricsRegistry:
-    """A named bag of counters. Asking twice for one name returns the same
-    counter."""
+    """A named bag of counters and gauges. Asking twice for one name
+    returns the same metric; asking for it as the other kind raises."""
 
     def __init__(self, name: str) -> None:
         self.name = name
         self._metrics: Dict[str, Counter] = {}
         self._lock = threading.Lock()
 
-    def counter(self, name: str, help: str = "") -> Counter:
+    def _get_or_make(self, cls, name: str, help: str):
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = self._metrics[name] = Counter(name, help)
+                m = self._metrics[name] = cls(name, help)
+            elif type(m) is not cls:
+                raise TypeError(f"metric {name!r} already registered as {m.kind}, "
+                                f"wanted {cls.kind}")
             return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_make(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_make(Gauge, name, help)

@@ -570,3 +570,96 @@ def test_card_aggregations_match_cpu(cuda):
                     np.testing.assert_array_equal(res.values, host[0].values)
                     np.testing.assert_array_equal(res.counts, host[0].counts)
     assert combine_ops.launches > before[0]
+
+
+def _sharded_stream(store, n, n_tablets, seed):
+    rng = np.random.default_rng(seed)
+    ts = np.sort(rng.integers(0, 4 * 3600, n))
+    vals = {"domain": rng.choice(["a.com", "b.com", "c.com"], n, p=[0.6, 0.3, 0.1]).tolist(),
+            "status": rng.choice(["200", "404"], n).tolist(),
+            "bytes_out": rng.integers(64, 4096, n).astype(str).tolist()}
+    cols = store.encode_events(ts, vals)
+    rts = (2**30 - 1 - ts).astype(np.int32)
+    return rts, cols, rng.integers(0, n_tablets, n).astype(np.int64)
+
+
+def _threaded(plane, rts, cols, tab, n_writers, chunk):
+    import threading
+
+    def work(w):
+        r, c, t = rts[w::n_writers], cols[w::n_writers], tab[w::n_writers]
+        for off in range(0, len(r), chunk):
+            plane.ingest(r[off: off + chunk], c[off: off + chunk], t[off: off + chunk],
+                         writer_id=w)
+
+    threads = [threading.Thread(target=work, args=(w,)) for w in range(n_writers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+
+
+def test_threaded_sharded_plane_on_the_card_matches_the_cpu(cuda):
+    """W = 4 writer threads into G = 4 groups on the card: every group's
+    state, drained with compact_step, equals a serial ingest of the same
+    rows on the CPU, and the queries agree. aggregate_combine launches
+    exactly twice per major and fold increment under the threads."""
+    store = EventStore(web_proxy_schema())
+    rts, cols, tab = _sharded_stream(store, 12_000, 8, seed=17)
+    sizes = dict(capacity=8192, n_tablets=8, mem_rows=256, max_runs=2, append_rows=128,
+                 n_groups=4)
+    card = DistIngestPlane.for_store(store, device=cuda, **sizes)
+    cpu = DistIngestPlane.for_store(store, device="cpu", **sizes)
+    before = agg_ops.launches
+    _threaded(card, rts, cols, tab, 4, chunk=500)
+    torch.cuda.synchronize()
+    majors = card.fold_events["ingest"]
+    assert majors > 0 and agg_ops.launches - before == 2 * majors
+    folds = 0
+    while card.has_unfolded():
+        folds += card.fold_debt() > 0
+        assert card.compact_step() == 1
+    assert agg_ops.launches - before == 2 * (majors + folds)
+    for w in range(4):
+        for off in range(0, len(rts[w::4]), 500):
+            cpu.ingest(rts[w::4][off: off + 500], cols[w::4][off: off + 500],
+                       tab[w::4][off: off + 500], writer_id=w)
+    while cpu.compact_step():
+        pass
+    np.testing.assert_array_equal(card.telemetry()["rows"], cpu.telemetry()["rows"])
+    # Base contents per tablet as multisets: the threads' append order may
+    # differ from the serial one, the sorted bases may not.
+    for gc, gp in zip(card.groups, cpu.groups):
+        for name in ("ev_base_k", "ev_base_n", "ix_base_k", "ix_base_n", "ag_base_k", "ag_base_c",
+                     "ag_base_n"):
+            assert torch.equal(gc.state[name].cpu(), gp.state[name]), name
+    dqs = [DistQueryProcessor(store, p, device=p.device) for p in (card, cpu)]
+    for tree in (pf.Eq("domain", "c.com"), pf.And(pf.Eq("domain", "a.com"),
+                                                  pf.Cmp("bytes_out", "<", 1000))):
+        for scheme in ("scan", "batched_scan", "index", "batched_index"):
+            got = [sum(b.count for b in dq.run_scheme(scheme, 0, 4 * 3600, tree)) for dq in dqs]
+            assert got[0] == got[1] > 0
+
+
+def test_launch_counts_stay_exact_under_threads(cuda):
+    """Eight threads launching merge_ranks on the card: the counter gains
+    exactly one per launch."""
+    import threading
+
+    keys = torch.arange(4096, dtype=torch.int64, device=cuda).reshape(2, 2048)
+    lengths = torch.full((2, 2), 1024, dtype=torch.int32, device=cuda)
+    before = merge_ops.launches
+
+    def work():
+        for _ in range(200):
+            merge_ranks(keys, [0, 1024, 2048], lengths)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert merge_ops.launches - before == 8 * 200

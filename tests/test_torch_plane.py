@@ -206,5 +206,13 @@ def test_plane_requires_cuda_unless_cpu_is_asked_for():
 
 
 def test_sharded_plane_is_left_for_a_later_slice():
-    with pytest.raises(NotImplementedError):
+    # Plane sharding is ported now (tests/test_torch_sharding.py holds it to
+    # the reference): what stays here is the facade's validation.
+    with pytest.raises(ValueError, match="divide"):
         DistIngestPlane(3, capacity=64, n_groups=2, device="cpu")
+    with pytest.raises(ValueError, match=">= 1"):
+        DistIngestPlane(3, capacity=64, n_tablets=2, n_groups=0, device="cpu")
+    plane = DistIngestPlane(3, capacity=64, n_tablets=4, mem_rows=16, n_groups=2, device="cpu")
+    assert [g.lock.name for g in plane.groups] == ["plane_lock_g0", "plane_lock_g1"]
+    with pytest.raises(RuntimeError, match="n_groups > 1"):
+        plane.state
