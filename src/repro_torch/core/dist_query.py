@@ -531,11 +531,14 @@ class DistBatch:
 
 class _PinnedSource:
     """The planner's density source bound to one published snapshot: a
-    query plans from the same LSM state its batches execute against."""
+    query plans from the same LSM state its batches execute against.
+    ``profile`` (a serve_db QueryProfile, or None) accrues the density
+    reads' seconds in density_acc_s."""
 
-    def __init__(self, proc: "DistQueryProcessor", dist: DistStore):
+    def __init__(self, proc: "DistQueryProcessor", dist: DistStore, profile=None):
         self._proc = proc
         self._dist = dist
+        self._profile = profile
 
     @property
     def schema(self):
@@ -546,23 +549,36 @@ class _PinnedSource:
         return self._proc.store.dictionaries
 
     def agg_count(self, field: str, value: str, t_start: int, t_stop: int) -> int:
-        return self._proc._agg_count_on(self._dist, field, value, t_start, t_stop)
+        if self._profile is None:
+            return self._proc._agg_count_on(self._dist, field, value, t_start, t_stop)
+        t0 = time.perf_counter()
+        out = self._proc._agg_count_on(self._dist, field, value, t_start, t_stop)
+        self._profile.density_acc_s += time.perf_counter() - t0
+        return out
 
 
 class QueryRun:
     """One planned query pinned to one published snapshot, stepped one
-    adaptive batch at a time. An 'empty' plan dispatches no device work."""
+    adaptive batch at a time. An 'empty' plan dispatches no device work.
+
+    The serve plane (repro_torch.serve_db) interleaves many sessions' runs
+    under its device lock, one step per batch. Published levels are never
+    written in place, so a concurrent publish or compaction cannot change
+    a pinned run's results. ``profile`` (a serve_db QueryProfile, or None)
+    accrues the planner's density reads and each step's device section."""
 
     def __init__(self, proc: "DistQueryProcessor", tree, t_start: int, t_stop: int,
                  use_index: bool = True, batched: bool = True,
-                 stats: Optional[QueryStats] = None):
+                 stats: Optional[QueryStats] = None, profile=None):
         self.proc = proc
         self.tree = tree
         self.t_start = t_start
         self.t_stop = t_stop
         self.stats = stats
+        self.profile = profile
         self.dist = proc._sync()  # pinned for the whole run
-        source = _PinnedSource(proc, self.dist) if self.dist.has_index else proc.store
+        source = (_PinnedSource(proc, self.dist, profile=profile) if self.dist.has_index
+                  else proc.store)
         with span("query.plan", cat="query") as sp:
             self.plan = plan_query(source, tree, t_start, t_stop, w=proc.w,
                                    use_index=use_index and self.dist.has_index)
@@ -586,6 +602,7 @@ class QueryRun:
             return self._single_done
         return self.batcher.done
 
+    # reprolint: hot-path — one serve-plane turn is N of these steps
     def step(self) -> Optional[DistBatch]:
         """Execute the next adaptive batch and return it; None once done."""
         if self.done:
@@ -597,7 +614,8 @@ class QueryRun:
         t0 = time.perf_counter()
         with span("query.step", cat="query", mode=self.plan.mode) as sp:
             blk = self.proc._exec_range(self.plan, self.tree, int(lo), int(hi), self.stats,
-                                        dist=self.dist, program=self.program)
+                                        dist=self.dist, program=self.program,
+                                        profile=self.profile)
             sp.set(rows=blk.count)
         runtime = time.perf_counter() - t0
         if self.batcher is None:
@@ -710,29 +728,35 @@ class DistQueryProcessor:
         one transfer); a query makes it once and every step reuses it."""
         return program_tensors(compile_tree(self.store, tree), device)
 
+    # reprolint: hot-path — the per-batch device step of every scan scheme
     def scan_range(self, tree, t0: int, t1: int, dist: Optional[DistStore] = None,
-                   program=None) -> Tuple[int, np.ndarray, np.ndarray]:
+                   program=None, profile=None) -> Tuple[int, np.ndarray, np.ndarray]:
         """One range scan across all tablets and all LSM levels, ts in
         [t0, t1]. Returns (global count, the top-k newest matching rows per
         tablet as (ts, cols) numpy arrays). ``dist`` pins a snapshot;
-        ``program`` is the tree's prepared Program (made here if None)."""
+        ``program`` is the tree's prepared Program (made here if None);
+        ``profile`` (a serve_db QueryProfile) accrues the device section in
+        device_acc_s."""
         d = dist if dist is not None else self._sync()
         if program is None:
             program = self._program(tree, d.device)
         if d.groups is not None:
             # One step per group: counts sum and the top-k slates
             # concatenate (unordered across tablets, so across groups).
-            parts = [self.scan_range(tree, t0, t1, dist=sub, program=program)
+            parts = [self.scan_range(tree, t0, t1, dist=sub, program=program, profile=profile)
                      for sub in d.groups]
             return (sum(c for c, _, _ in parts), np.concatenate([p[1] for p in parts]),
                     np.concatenate([p[2] for p in parts]))
-        rts_lo = int(keypack.rev_ts(t1))
-        rts_hi = int(keypack.rev_ts(t0)) + 1
+        rts_lo = keypack.rev_ts(int(t1))
+        rts_hi = keypack.rev_ts(int(t0)) + 1
+        tdev = time.perf_counter()
         with span("query.scan_range", cat="query") as sp:
             total, top_ts, top_cols = scan_step(d, program, rts_lo, rts_hi, self.top_k)
             count = int(sp.fence(total))
             ts = sp.fence(top_ts).cpu().numpy()
             cols = sp.fence(top_cols).cpu().numpy()
+        if profile is not None:
+            profile.device_acc_s += time.perf_counter() - tdev
         valid = ts != INVALID_TS
         return count, keypack.unrev_ts(ts[valid]), cols[valid]
 
@@ -753,26 +777,30 @@ class DistQueryProcessor:
             hi[i] = keypack.pack_index_key(fid, code, rts_hi) + 1
         return lo, hi
 
+    # reprolint: hot-path — the per-batch device step of the index schemes
     def scan_index_range(self, plan: QueryPlan, tree, t0: int, t1: int,
-                         dist: Optional[DistStore] = None, program=None):
+                         dist: Optional[DistStore] = None, program=None, profile=None):
         """One index-mode range across all tablets and levels (paper Fig 2
         on the device): postings per condition per level, the device-side
         intersect or union, candidate rows from every level, and the FULL
         tree re-checked on them. Returns (global count, top-k (ts, cols),
         truncated, candidates); truncated > 0 means a slab overflowed and
-        the count is a lower bound. ``program`` as in scan_range."""
+        the count is a lower bound. ``program`` and ``profile`` as in
+        scan_range."""
         d = dist if dist is not None else self._sync()
         if program is None:
             program = self._program(tree, d.device)
         if d.groups is not None:
             # Every group holds postings of the conditions: counts,
             # truncation and candidates sum, and the slates concatenate.
-            parts = [self.scan_index_range(plan, tree, t0, t1, dist=sub, program=program)
+            parts = [self.scan_index_range(plan, tree, t0, t1, dist=sub, program=program,
+                                           profile=profile)
                      for sub in d.groups]
             return (sum(p[0] for p in parts), np.concatenate([p[1] for p in parts]),
                     np.concatenate([p[2] for p in parts]), sum(p[3] for p in parts),
                     sum(p[4] for p in parts))
         lo, hi = self._cond_ranges(plan, t0, t1)
+        tdev = time.perf_counter()
         ranges = torch.from_numpy(np.stack([lo, hi])).to(d.device)
         with span("query.scan_index_range", cat="query") as sp:
             total, top_ts, top_cols, truncated, cands = index_step(
@@ -782,22 +810,27 @@ class DistQueryProcessor:
                 int(x) for x in sp.fence(torch.stack([total, truncated, cands])).cpu())
             ts = sp.fence(top_ts).cpu().numpy()
             cols = sp.fence(top_cols).cpu().numpy()
+        if profile is not None:
+            profile.device_acc_s += time.perf_counter() - tdev
         valid = ts != INVALID_TS
         return count, keypack.unrev_ts(ts[valid]), cols[valid], n_trunc, n_cands
 
+    # reprolint: hot-path
     def _exec_range(self, plan: QueryPlan, tree, t0: int, t1: int,
                     stats: Optional[QueryStats] = None,
-                    dist: Optional[DistStore] = None, program=None) -> DistBatch:
+                    dist: Optional[DistStore] = None, program=None,
+                    profile=None) -> DistBatch:
         d = dist if dist is not None else self.dist
         if plan.mode == "index" and d.has_index:
-            count, ts, cols, truncated, cands = self.scan_index_range(plan, tree, t0, t1, dist=d,
-                                                                      program=program)
+            count, ts, cols, truncated, cands = self.scan_index_range(
+                plan, tree, t0, t1, dist=d, program=program, profile=profile)
             if stats is not None:
                 stats.index_keys_scanned += cands
             if not truncated:
                 return DistBatch(count, ts, cols)
             # A slab overflowed: redo this range with the exact scan step.
-        count, ts, cols = self.scan_range(tree, t0, t1, dist=d, program=program)
+        count, ts, cols = self.scan_range(tree, t0, t1, dist=d, program=program,
+                                          profile=profile)
         return DistBatch(count, ts, cols)
 
     def execute(self, tree, t_start: int, t_stop: int, use_index: bool = True,

@@ -1,0 +1,498 @@
+"""The port's serve plane (repro_torch.serve_db) on the CPU: the turn
+quantum, the fair scheduler and the query profile against the reference
+on the same inputs; threaded sessions over a live DistIngestPlane whose
+every count equals the reference's host QueryProcessor on the same
+events (and the port's own); the compactor, ingest and telemetry
+contracts of tests/test_serve_db.py; the error probes; and the serve
+daemon with a tight TTFR SLO."""
+import json
+import re
+import threading
+import time
+from urllib.request import urlopen
+
+import numpy as np
+import pytest
+import torch
+
+from repro import core as jcore
+from repro import obs as jobs
+from repro.serve_db.profile import QueryProfile as JQueryProfile
+from repro.serve_db.scheduler import FairScheduler as JFairScheduler
+from repro.serve_db.scheduler import QueryEntry as JQueryEntry
+from repro.serve_db.scheduler import TurnQuantum as JTurnQuantum
+from repro_torch import core as pcore
+from repro_torch import obs
+from repro_torch.core import (
+    AggregateSpec, And, Eq, EventStore, Or, QueryProcessor, QueryStats, web_proxy_schema,
+)
+from repro_torch.core.dist_ingest import DistBatchWriter, DistIngestPlane
+from repro_torch.core.dist_query import DistQueryProcessor, QueryRun
+from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.serve_db import (
+    FairScheduler, QueryEntry, QueryProfile, QueryService, TurnQuantum, ttfr_event_probe,
+)
+from repro_torch.serve_db.__main__ import main as daemon_main
+
+T_SPAN = 2 * 3600
+SCHEMES = ["scan", "batched_scan", "index", "batched_index"]
+
+
+def assert_stages_tile_ttfr(p):
+    """The reference's law: the first-result stages sum to the TTFR within
+    5%. Below 1 ms of TTFR the few microseconds of bookkeeping between one
+    stage's closing clock read and the next stage's opening read can
+    exceed 5%, so there the gap is held to 5% of 1 ms."""
+    gap = abs(p.breakdown_sum_s() - p.ttfr_s)
+    assert gap <= 0.05 * max(p.ttfr_s, 1e-3), (
+        f"{p.scheme} q{p.qid}: stages {p.breakdown_sum_s():.6f}s vs ttfr {p.ttfr_s:.6f}s")
+
+
+def _gen(seed, n):
+    rng = np.random.default_rng(seed)
+    ts = np.sort(rng.integers(0, T_SPAN, n))
+    vals = {
+        "domain": rng.choice(
+            ["a.com", "b.com", "c.com", "rare.net"], p=[0.6, 0.25, 0.13, 0.02], size=n
+        ).tolist(),
+        "method": rng.choice(["GET", "POST"], size=n).tolist(),
+        "status": rng.choice(["200", "404"], size=n, p=[0.8, 0.2]).tolist(),
+    }
+    return ts, vals
+
+
+def _trees(m):
+    """tests/test_serve_db.py's TREES, built from module m's nodes."""
+    return [
+        m.Eq("domain", "rare.net"),
+        m.Eq("domain", "c.com"),
+        m.And(m.Eq("domain", "c.com"), m.Eq("status", "404")),
+        m.Or(m.Eq("domain", "rare.net"), m.Eq("domain", "c.com")),
+        None,
+    ]
+
+
+TREES = _trees(pcore)
+JTREES = _trees(jcore)
+
+
+class Served:
+    """One live CPU plane (unfolded runs at rest) behind one QueryService,
+    the port's host store it was written from, and the reference's host
+    store holding the same events — the oracle."""
+
+    def __init__(self):
+        ts, vals = _gen(seed=23, n=8_000)
+        self.store = EventStore(web_proxy_schema(), n_shards=4)
+        self.jstore = jcore.EventStore(jcore.web_proxy_schema(), n_shards=4)
+        for s in (self.store, self.jstore):
+            s.ingest(ts, vals)
+            s.flush_all()
+            s.compact_all()
+        self.plane = DistIngestPlane.for_store(
+            self.store, capacity=16_000, n_tablets=2, mem_rows=1024, max_runs=6,
+            append_rows=512, device="cpu")
+        w = DistBatchWriter(self.store, self.plane, batch_rows=1500)
+        w.add(ts, {k: list(v) for k, v in vals.items()})
+        w.close()
+        self.svc = QueryService(self.store, self.plane, compaction_interval=0.01)
+        self._oracle = {}
+
+    def add_to_hosts(self, ts, vals):
+        """Keep both host stores equal to the plane after extra ingest."""
+        for s in (self.store, self.jstore):
+            s.ingest(ts, vals)
+            s.flush_all()
+        self._oracle.clear()
+
+    def oracle(self, scheme, t0, t1, tree_index):
+        """The reference's host count, which the port's own host processor
+        must also give."""
+        key = (scheme, t0, t1, tree_index)
+        if key not in self._oracle:
+            want = sum(b.n for b in jcore.QueryProcessor(self.jstore).run_scheme(
+                scheme, t0, t1, JTREES[tree_index]))
+            mine = sum(b.n for b in QueryProcessor(self.store, device="cpu").run_scheme(
+                scheme, t0, t1, TREES[tree_index]))
+            assert mine == want, (scheme, t0, t1, tree_index, mine, want)
+            self._oracle[key] = want
+        return self._oracle[key]
+
+
+@pytest.fixture(scope="module")
+def served():
+    s = Served()
+    yield s
+    s.svc.close()
+    obs.flight_disable()
+    obs.flight_clear()
+
+
+# ------------------------------------------- parity of the pure pieces
+def test_turn_quantum_budgets_match_reference():
+    rng = np.random.default_rng(3)
+    ours, ref = TurnQuantum(k0=2.0), JTurnQuantum(k0=2.0)
+    for _ in range(300):
+        runtime = float(rng.lognormal(-3, 1.5))
+        batches = int(rng.integers(0, 9))
+        assert ours.budget() == ref.budget()
+        ours.update(runtime, batches)
+        ref.update(runtime, batches)
+        assert ours.k == ref.k
+    # Hot turns shrink to one batch, fast turns grow to the cap.
+    for runtime, want in ((5.0, 1), (1e-4, 8)):
+        for _ in range(30):
+            ours.update(runtime, ours.budget())
+        assert ours.budget() == want
+
+
+def test_fair_scheduler_pops_match_reference():
+    """A seeded series of submits, requeues and pops: both schedulers pop
+    the same entries in the same order, with the same TTFR-waiting and
+    pending flags, and log the same first-turn waits (ready_at injected,
+    no clock read)."""
+    rng = np.random.default_rng(9)
+    ours, ref = FairScheduler(), JFairScheduler()
+    seq_ours, seq_ref = [], []
+    for step in range(400):
+        op = int(rng.integers(0, 3))
+        ready = float(rng.random())
+        if op == 0:
+            ours.submit(QueryEntry(session=None, stream=None, ready_at=ready, seq=step))
+            ref.submit(JQueryEntry(session=None, stream=None, ready_at=ready, seq=step))
+        elif op == 1:
+            ours.requeue(QueryEntry(session=None, stream=None, ready_at=ready, seq=step))
+            ref.requeue(JQueryEntry(session=None, stream=None, ready_at=ready, seq=step))
+        else:
+            a, b = ours.pop_turn(timeout=0), ref.pop_turn(timeout=0)
+            seq_ours.append(None if a is None else (a.seq, a.ready_at))
+            seq_ref.append(None if b is None else (b.seq, b.ready_at))
+            if a is not None:
+                wait = float(rng.random())
+                first = int(rng.integers(0, 2))
+                ours.log_turn(0, 0 if first else 1, wait, 1, wait)
+                ref.log_turn(0, 0 if first else 1, wait, 1, wait)
+        assert ours.ttfr_waiting() == ref.ttfr_waiting()
+        assert ours.has_pending() == ref.has_pending()
+    assert seq_ours == seq_ref and any(s is not None for s in seq_ours)
+    assert ours.max_first_turn_wait() == ref.max_first_turn_wait()
+    left_ours = [(e.seq, e.ready_at) for e in ours.close()]
+    assert left_ours == [(e.seq, e.ready_at) for e in ref.close()]
+    with pytest.raises(RuntimeError):
+        ours.submit(QueryEntry(session=None, stream=None))
+
+
+def test_query_profile_stages_match_reference():
+    rng = np.random.default_rng(4)
+    ours, ref = QueryProfile(7, "batched_index"), JQueryProfile(7, "batched_index")
+    for p in (ours, ref):
+        p.admission_s, p.admission_queue_s, p.plan_s, p.density_fence_s = 0.004, 0.001, 0.002, 0.003
+    for i in range(6):
+        dev, epi, dlv = (float(x) for x in rng.random(3) * 1e-3)
+        for p in (ours, ref):
+            p.note_step(dev, epi, i == 0)
+            p.note_deliver(dlv, i == 0)
+    regs = MetricsRegistry("t_profile_port"), jobs.MetricsRegistry("t_profile_ref")
+    probe = ttfr_event_probe()
+    ours.commit(0.0125, registry=regs[0])
+    ref.commit(0.0125, registry=regs[1])
+    ours.commit(9.0, registry=regs[0])  # a second commit is ignored
+    assert ours.stages() == ref.stages()
+    assert ours.as_dict() == ref.as_dict()
+    assert ours.breakdown_sum_s() == ref.breakdown_sum_s()
+    assert regs[0].snapshot() == regs[1].snapshot()
+    cell = regs[0].histogram("query_profile_ttfr_seconds").snapshot(scheme="batched_index")
+    assert cell["exemplar"] == {"trace_id": "q7", "value": 0.0125}
+    assert [v for _, v in probe()] == [0.0125] and probe() == []
+
+
+# ----------------------------------------------------- oracle agreement
+def test_single_session_all_schemes_agree(served):
+    s = served.svc.session("solo")
+    for scheme in SCHEMES:
+        got = s.submit(scheme, 0, T_SPAN, TREES[0]).count()
+        assert got == served.oracle(scheme, 0, T_SPAN, 0) > 0, scheme
+    s.close()
+
+
+def test_concurrent_sessions_agree_with_host_oracle(served):
+    """Four client threads, each streaming its share of every (scheme,
+    tree) pair over seeded ranges through its own session: every count
+    equals the reference's host QueryProcessor and the port's."""
+    rng = np.random.default_rng(11)
+    jobs_ = []
+    for scheme in SCHEMES:
+        for ti in range(len(TREES)):
+            lo = int(rng.integers(0, T_SPAN // 2))
+            hi = int(rng.integers(lo + 600, T_SPAN + 1))
+            jobs_.append((scheme, lo, hi, ti))
+    order = rng.permutation(len(jobs_))
+    per_thread = [[jobs_[j] for j in order[i::4]] for i in range(4)]
+    results = [[] for _ in range(4)]
+    errors = []
+
+    def client(i):
+        try:
+            s = served.svc.session(f"client-{i}")
+            for scheme, lo, hi, ti in per_thread[i]:
+                results[i].append(s.submit(scheme, lo, hi, TREES[ti]).count())
+            s.close()
+        except BaseException as e:  # surfaced in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    for i in range(4):
+        for (scheme, lo, hi, ti), got in zip(per_thread[i], results[i]):
+            assert got == served.oracle(scheme, lo, hi, ti), (scheme, lo, hi, ti)
+
+
+def test_host_backend_sessions_match_dist(served):
+    sd = served.svc.session("d")
+    sh = served.svc.session("h", backend="host")
+    for scheme in SCHEMES:
+        for ti in (1, 3):
+            qd = sd.submit(scheme, 0, T_SPAN, TREES[ti])
+            qh = sh.submit(scheme, 0, T_SPAN, TREES[ti])
+            assert qd.count() == qh.count() == served.oracle(scheme, 0, T_SPAN, ti) > 0
+    sd.close()
+    sh.close()
+
+
+def test_aggregate_and_density_sessions(served):
+    spec = AggregateSpec(group_by=("status",), op="count", time_bucket_s=3600)
+    jspec = jcore.AggregateSpec(group_by=("status",), op="count", time_bucket_s=3600)
+    want = jcore.QueryProcessor(served.jstore).aggregate(jspec, 0, T_SPAN, JTREES[1])
+    for backend in ("dist", "host"):
+        s = served.svc.session(f"agg-{backend}", backend=backend)
+        rb = s.submit_aggregate(spec, 0, T_SPAN, TREES[1]).drain()
+        assert len(rb) == 1
+        res = rb[0].blocks[0]
+        np.testing.assert_array_equal(np.sort(res.values), np.sort(want.values))
+        assert rb[0].count == int(want.counts.sum()) == int(res.counts.sum())
+        dens = s.submit_density("domain", "rare.net", 0, T_SPAN).count()
+        assert dens == served.jstore.agg_count("domain", "rare.net", 0, T_SPAN) > 0
+        s.close()
+
+
+def test_first_batch_monotonicity_and_streaming(served):
+    s = served.svc.session("stream")
+    q = s.submit("batched_scan", 0, T_SPAN, TREES[1])
+    batches = q.drain()
+    assert len(batches) > 1
+    assert [rb.seq for rb in batches] == list(range(len(batches)))
+    los = [rb.lo for rb in batches]
+    assert all(b > a for a, b in zip(los, los[1:])), los
+    assert all(rb.hi >= rb.lo for rb in batches)
+    assert q.first_result_s is not None and q.first_result_s <= q.total_s + 1e-9
+    p = q.profile
+    assert p.committed and p.ttfr_s == q.first_result_s
+    assert all(v >= 0.0 for v in p.stages().values()) and p.steps_total == len(batches)
+    assert_stages_tile_ttfr(p)
+    s.close()
+
+
+def test_empty_plan_sessions_run_zero_batches(served):
+    s = served.svc.session("empty")
+    stats = QueryStats()
+    q = s.submit("batched_index", 0, T_SPAN, Eq("domain", "never-seen.example"), stats=stats)
+    assert q.count() == 0
+    assert stats.plan is not None and stats.plan.mode == "empty" and stats.batches == 0
+    s.close()
+
+
+# ---------------------------------------- compactor vs in-flight runs
+def test_fold_mid_query_never_changes_results(served):
+    """A run pinned before a full fold (with fresh rows in the memtable so
+    every level moves) finishes with exactly the counts of the events it
+    was pinned to; a query after the fold sees every row."""
+    svc, plane, store = served.svc, served.plane, served.store
+    assert svc.wait_idle()
+    proc = DistQueryProcessor(store, plane=plane, device="cpu")
+    run = QueryRun(proc, TREES[3], 0, T_SPAN, use_index=True, batched=True)
+    total = run.step().count
+    assert not run.done
+    extra_ts, extra_vals = _gen(seed=91, n=500)
+    w = DistBatchWriter(store, plane, batch_rows=500)
+    w.add(extra_ts, extra_vals)
+    w.close()
+    plane.compact(source="background")
+    while not run.done:
+        total += run.step().count
+    want = served.oracle("batched_index", 0, T_SPAN, 3)
+    got_new = sum(b.count for b in proc.execute(TREES[3], 0, T_SPAN))
+    served.add_to_hosts(extra_ts, extra_vals)
+    assert total == want
+    assert got_new == served.oracle("batched_index", 0, T_SPAN, 3)
+
+
+def test_background_compactor_drains_when_idle(served):
+    svc, plane = served.svc, served.plane
+    s = svc.session("dirty")
+    increments = svc.compactor.increments
+    extra_ts, extra_vals = _gen(seed=92, n=700)
+    w = DistBatchWriter(served.store, plane, batch_rows=700)
+    w.add(extra_ts, extra_vals)  # leaves rows in the memtables
+    w.close()
+    served.add_to_hosts(extra_ts, extra_vals)
+    assert svc.wait_idle()
+    deadline = time.perf_counter() + 60
+    while plane.has_unfolded() and time.perf_counter() < deadline:
+        time.sleep(0.02)
+    assert not plane.has_unfolded(), "compactor never drained the plane"
+    assert svc.compactor.folds >= 1 and svc.compactor.increments > increments
+    assert svc.compactor.max_increment_s > 0.0
+    tel = plane.telemetry()
+    assert tel["fold_events"].get("background", 0) >= 1
+    assert set(tel["fold_events"]) <= {"ingest", "background", "explicit"}
+    got = s.submit("batched_index", 0, T_SPAN, TREES[0]).count()
+    assert got == served.oracle("batched_index", 0, T_SPAN, 0)
+    s.close()
+
+
+def test_queries_while_ingesting(served):
+    """Sessions stream while a writer ingests: acknowledged rows are
+    visible to the next query, and full-range counts never decrease."""
+    svc, plane = served.svc, served.plane
+    assert svc.wait_idle()
+    s = svc.session("live")
+    base = s.submit("batched_scan", 0, T_SPAN, None).count()
+    counts = [base]
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            counts.append(s.submit("batched_scan", 0, T_SPAN, None).count())
+
+    t = threading.Thread(target=reader)
+    t.start()
+    n_extra = 1_200
+    extra_ts, extra_vals = _gen(seed=77, n=n_extra)
+    w = DistBatchWriter(served.store, plane, batch_rows=400)
+    for off in range(0, n_extra, 400):
+        sl = slice(off, off + 400)
+        w.add(extra_ts[sl], {k: v[sl] for k, v in extra_vals.items()})
+    w.close()
+    after_ack = s.submit("batched_scan", 0, T_SPAN, None).count()
+    stop.set()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    s.close()
+    served.add_to_hosts(extra_ts, extra_vals)
+    assert after_ack == base + n_extra
+    assert all(b >= a for a, b in zip(counts, counts[1:])), counts
+    assert max(counts) <= after_ack
+    assert after_ack == served.oracle("batched_scan", 0, T_SPAN, 4)
+
+
+# ------------------------------------------------------------ telemetry
+def test_session_telemetry_surfaced_in_plane(served):
+    s = served.svc.session("telemetry")
+    q = s.submit("batched_scan", 0, T_SPAN, TREES[1])
+    n = q.count()
+    s.close()
+    tel = served.plane.telemetry()
+    rec = tel["sessions"][s.session_id]
+    assert rec["queries"] >= 1.0 and rec["rows"] >= float(n)
+    assert rec["batches"] == float(q.batches) >= 1.0
+    assert rec["first_result_s_max"] > 0.0 and rec["queue_wait_s"] >= 0.0
+    assert "blocked_seconds_per_writer" in tel
+
+
+def _prom_samples(text):
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([a-zA-Z0-9_:]+)(\{(.*)\})? (\S+)$", line)
+        assert m, f"unparseable sample line: {line!r}"
+        name, _, labels, val = m.groups()
+        out[(name, labels or "")] = float("inf") if val == "+Inf" else float(val)
+    return out
+
+
+def test_metrics_scrape_counts_every_first_result(served):
+    """One scrape of /metrics over loopback parses, and its TTFR
+    histogram's count grew by exactly the first results delivered."""
+    def ttfr_count(samples):
+        return sum(v for (name, _), v in samples.items()
+                   if name == "query_profile_ttfr_seconds_count")
+
+    with obs.serve_prometheus() as ep:
+        before = ttfr_count(_prom_samples(urlopen(ep.url, timeout=10).read().decode()))
+        s = served.svc.session("scraped")
+        streams = [s.submit(scheme, 0, T_SPAN, TREES[1]) for scheme in SCHEMES]
+        streams.append(s.submit("batched_index", 0, T_SPAN, Eq("domain", "never-seen")))
+        for q in streams:
+            q.drain()
+        s.close()
+        after = ttfr_count(_prom_samples(urlopen(ep.url, timeout=10).read().decode()))
+    delivered = sum(q.first_result_at is not None for q in streams)
+    assert delivered == len(SCHEMES)  # the empty plan delivers nothing
+    assert after - before == delivered
+    for q in streams[:len(SCHEMES)]:
+        assert_stages_tile_ttfr(q.profile)
+
+
+# --------------------------------------------------------- error probes
+def test_error_probes(served):
+    store, plane = served.store, served.plane
+    idle = QueryService(store, plane, compactor=False, start=False)
+    s = idle.session("early")
+    with pytest.raises(RuntimeError):
+        s.submit("scan", 0, T_SPAN, None)
+    idle.start()
+    assert s.submit("scan", 0, T_SPAN, TREES[0]).count() == served.oracle("scan", 0, T_SPAN, 0)
+    bad = s.submit("no-such-scheme", 0, T_SPAN, None)
+    with pytest.raises(KeyError):
+        bad.count()
+    # The dispatcher survived the error.
+    assert s.submit("index", 0, T_SPAN, TREES[0]).count() == served.oracle("index", 0, T_SPAN, 0)
+    with pytest.raises(ValueError):
+        idle.session("gpu", backend="gpu")
+    idle.close()
+    assert idle._dispatcher is None
+    with pytest.raises(RuntimeError):
+        s.submit("scan", 0, T_SPAN, None)
+    with pytest.raises(RuntimeError):
+        idle.start()
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device runs")
+    store = EventStore(web_proxy_schema(), n_shards=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DistIngestPlane.for_store(store, capacity=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        daemon_main(["--rows", "100", "--duration", "0.1"])
+
+
+# ----------------------------------------------------------------- daemon
+def test_serve_daemon_on_the_cpu_writes_an_incident_bundle(tmp_path, capsys):
+    try:
+        rc = daemon_main([
+            "--device", "cpu", "--rows", "1200", "--sessions", "2", "--writers", "1",
+            "--duration", "1.5", "--incident-dir", str(tmp_path / "inc"),
+            "--ttfr-slo", "0.000001", "--window", "5", "--tick", "0.1",
+            "--groups", "1", "--tablets-per-device", "2",
+        ])
+    finally:
+        obs.flight_disable()  # main() arms the global recorder
+        obs.flight_clear()
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "METRICS_URL=http://127.0.0.1:" in out
+    assert f"INCIDENT_DIR={tmp_path / 'inc'}" in out
+    bundles = sorted((tmp_path / "inc").glob("*_ttfr_p99"))
+    assert bundles, out
+    trace = json.loads((bundles[0] / "trace.json").read_text())
+    assert jobs.validate_chrome_trace(trace) == [] and obs.validate_chrome_trace(trace) == []
+    assert any(e.get("ph") == "X" for e in trace["traceEvents"])
+    assert json.loads((bundles[0] / "metrics.json").read_text())["kind"] == "obs_metrics_snapshot"
+    assert "INCIDENT=" in out
