@@ -21,7 +21,7 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  five paths at full size, each with every kernel launch count
+  main path  seven paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -116,6 +116,49 @@ no result line):
                 ingest rows/s while serving, queue wait, the device lock's
                 held seconds by owner, the compactor's increments and the
                 flight-on against both-off seconds.
+             6. the ingest pipeline, at the reference's own deployment
+                (configs/llcysa.py PIPELINE: 8 shards, flush_rows 32,768,
+                max_runs 8, 3,600 s buckets, batch_rows 4,096): 64 files
+                of 16,384 lines (1,048,576 events over 4 hours,
+                SyntheticWebProxySource(seed + 3)) are staged under
+                build/ (set-up, untimed), then ingested by an
+                IngestWorkerPool of W = 4 workers and, as the control, of
+                W = 1 into fresh host EventStores on the card (their minor
+                sorts, majors and combiner run there), each under a
+                torch.profiler window (CUDA activity only). Each reports
+                rows/s and MB/s per worker, blocked seconds, the
+                compactions (backpressure_stats), the rate_series p50 and
+                p99, and merge_runs' launches and device ms; every file
+                must complete once, the store hold 1,048,576 rows, and
+                merge_runs launch exactly once per major of any tablet
+                (every run is non-empty, so every major merges two or
+                more). The host QueryProcessor on the card runs the four
+                schemes on tiers A, B, C and A AND 404 of the W = 4 store:
+                the scan schemes' totals must equal the staged lines'
+                counts; the index schemes' must equal the same scheme run
+                by a QueryProcessor on the CPU, and differ from the staged
+                counts by no more than the rows whose event key (16-bit
+                hash) another row of their shard shares (the index fetches
+                one row per key and run, as the reference does); spec
+                (a)'s total must equal the staged count, and its groups the
+                W = 1 store's, decoded. EventTokenizer(vocab 32,768).sequences gives 32
+                sequences of 8 events (112 tokens) in [0, 32,768), 14
+                tokens an event. filter_scan, merge_intersect,
+                combine_scan and merge_runs must launch.
+             7. the analytics LM's serve path: llcysa-analytics-100m at
+                full width (12 layers, d_model 768, 12 heads, d_ff 2,048,
+                vocab 32,768) in bf16 from a seeded init, behind
+                ServeEngine (max_batch 8, cache_len 256; after a 2-request
+                warm-up) answering 32 requests of path 6's sequences with
+                16 new tokens each: every request finishes with 16 tokens
+                in range; TTFT p50/p95, end-to-end p50, decode tokens/s
+                and peak memory are reported. In float32 on the same
+                weights, each of 16 greedy decode steps' logits must agree
+                with a prefill over the prompt plus the tokens generated
+                so far within 2e-3 (tests/test_models.py's bound); the
+                per-hour NLL of examples/cyber_pipeline.py step 5 must be
+                finite. The LM has no kernel of its own: its launches are
+                read and reported.
              Paths 1-3 also run the Cmp and Match filter nodes:
              domain = A AND bytes_out < 1000 on all four schemes and on
              path 3 with spec (a), Match(domain, "d0000") (the ten most
@@ -126,7 +169,9 @@ no result line):
              a major and the incremental fold, for the ev, ix and ag
              families, with the earlier design's time beside, and the ix
              and ag 2-way and fold at one group's shape of path 4, 16
-             tablets; filter_scan:
+             tablets, and at the host store's major shape of path 6: a
+             first major's 9 runs of 32,768 index keys, and index tablet
+             0's base and runs; filter_scan:
              the fused scan step over base, runs and memtable, each level
              alone, the index step's candidate rows alone and fused, and
              on the base In(bytes_in) sets of 3,000, 12,000 and 30,000
@@ -431,7 +476,7 @@ def run_reference(seed, dev):
     t0 = time.perf_counter()
     source = SyntheticWebProxySource(seed=seed + 1)
     ts, vals = parse_web_proxy_lines(source.gen_lines(24000, 0, T_SPAN))
-    host = EventStore(web_proxy_schema(), n_shards=4, flush_rows=4096, max_runs=3)
+    host = EventStore(web_proxy_schema(), n_shards=4, flush_rows=4096, max_runs=3, device="cpu")
     host.ingest(ts, vals)
     sizes = dict(n_tablets=8, mem_rows=512, max_runs=2, append_rows=256)
     planes = {name: DistIngestPlane.for_store(host, capacity=4096, device=d, **sizes)
@@ -1816,7 +1861,362 @@ def run_daemon(dev):
             "stdout": text.splitlines()[:4]}
 
 
-def run_main_path(seed, dev, size=MAIN_PATH):
+# Path 6: the reference's own deployment, PIPELINE of configs/llcysa.py
+# (8 shards, 4 ingest workers, flush_rows 32,768, max_runs 8, 3,600 s
+# aggregate buckets, batch_rows 4,096), over 64 staged files of 16,384
+# lines: 1,048,576 events over the paper's 4-hour span.
+PIPELINE_FILES = 64
+PIPELINE_LINES = 16_384
+# Path 7: llcysa-analytics-100m served to 32 requests whose prompts are
+# path 6's token sequences of 8 events (112 tokens), 16 new tokens each.
+LM_REQUESTS = 32
+LM_PROMPT_EVENTS = 8
+LM_NEW_TOKENS = 16
+LM_MAX_BATCH = 8
+LM_CACHE_LEN = 256
+LM_DECODE_ATOL = 2e-3  # tests/test_models.py::test_decode_matches_prefill's bound
+
+
+def profiled_kernels(fn, names):
+    """fn() once under a torch.profiler window (CUDA activity only).
+    Returns (fn's result, device ms summed over the kernels whose name
+    holds one of ``names``, how many such kernels the window holds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+    return out, sum(us) / 1e3, len(us)
+
+
+def pool_ingest(store, paths, n_workers, batch_rows):
+    """IngestWorkerPool of n_workers over the staged files into ``store``;
+    returns its report row (rates per worker, backpressure, the rate
+    series' percentiles) and the worker reports."""
+    import numpy as np
+    from repro_torch.core.ingest import rate_series
+    from repro_torch.pipeline import IngestWorkerPool
+
+    t0 = time.perf_counter()
+    pool = IngestWorkerPool(store, n_workers=n_workers, batch_rows=batch_rows,
+                            lease_timeout_s=120.0)
+    for p in paths:
+        pool.submit_file(p)
+    reports = pool.drain(timeout_s=600)
+    wall = time.perf_counter() - t0
+    _, rate = rate_series([r.metrics for r in reports])
+    files = sum(r.files for r in reports)
+    check(files == len(paths) == pool.queue.completed,
+          f"W = {n_workers}: {files} files reported, {pool.queue.completed} completed, "
+          f"{len(paths)} staged")
+    bp = store.backpressure_stats()
+    workers = [{"name": r.name, "files": r.files, "rows": r.metrics.rows,
+                "rows_per_s": r.metrics.rows / wall, "mb_per_s": r.metrics.bytes / wall / 1e6,
+                "blocked_s": r.metrics.blocked_seconds, "flush_s": r.metrics.flush_seconds}
+               for r in reports]
+    tablets = store.event_tablets + store.index_tablets + [store.agg_tablet]
+    row = {
+        "workers": n_workers, "wall_s": wall, "rows": store.total_rows,
+        "rows_per_s": store.total_rows / wall,
+        "rows_per_s_per_worker": store.total_rows / wall / n_workers,
+        "mb_per_s_per_worker": sum(r.metrics.bytes for r in reports) / wall / n_workers / 1e6,
+        "blocked_s": sum(r.metrics.blocked_seconds for r in reports),
+        "backpressure": bp,
+        "majors_all_tablets": sum(t.major_compactions for t in tablets),
+        "minors_all_tablets": sum(t.minor_compactions for t in tablets),
+        "rate_p50": float(np.percentile(rate, 50)) if rate.size else 0.0,
+        "rate_p99": float(np.percentile(rate, 99)) if rate.size else 0.0,
+        "rate_buckets": int(rate.size), "per_worker": workers,
+    }
+    return row
+
+
+def run_pipeline(seed, dev, zero_launches, read_launches, files=PIPELINE_FILES,
+                 lines=PIPELINE_LINES):
+    """Path 6: stage the files, ingest them with W = 4 and W = 1 workers into
+    fresh host stores on the card, query the W = 4 store with the host
+    QueryProcessor, tokenize it. Returns (report, the W = 4 store, its
+    tokenizer, the (32, 112) token prompts, the launches of the path)."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.configs.llcysa import PIPELINE as P
+    from repro_torch.core import And, Eq, QueryProcessor, QueryStats
+    from repro_torch.core.schema import web_proxy_schema
+    from repro_torch.core.store import EventStore
+    from repro_torch.pipeline import EventTokenizer, SyntheticWebProxySource
+    from repro_torch.pipeline.sources import parse_web_proxy_lines
+
+    stage = os.path.join(ROOT, "build", "pipeline_staged")  # gitignored
+    shutil.rmtree(stage, ignore_errors=True)
+    report = {}
+    try:
+        t0 = time.perf_counter()
+        source = SyntheticWebProxySource(seed=seed + 3)
+        paths = source.write_files(stage, files, lines, 0, T_SPAN)
+        domain_counts, pair_counts, nbytes = Counter(), Counter(), 0
+        for p in paths:
+            with open(p) as f:
+                text = f.readlines()
+            nbytes += sum(len(x) for x in text)
+            _, vals = parse_web_proxy_lines(text)
+            domain_counts.update(vals["domain"])
+            pair_counts.update(zip(vals["domain"], vals["status"]))
+        events = files * lines
+        report["staging"] = {"files": files, "lines_per_file": lines, "events": events,
+                             "bytes": nbytes, "seconds": time.perf_counter() - t0}
+        log("pipeline", f"staged {files} files of {lines} lines ({events} events, {nbytes} "
+            f"bytes) in {report['staging']['seconds']:.3f} s (set-up, untimed)")
+
+        def make_store():
+            return EventStore(web_proxy_schema(), n_shards=P.n_shards, flush_rows=P.flush_rows,
+                              max_runs=P.max_runs, agg_bucket_seconds=P.agg_bucket_seconds,
+                              seed=seed, device=dev)
+
+        zero_launches()
+        stores, runs = {}, []
+        for w in (P.n_ingest_workers, 1):
+            store = make_store()
+            before = read_launches()["merge_runs"]
+            row, merge_ms, merge_events = profiled_kernels(
+                lambda: pool_ingest(store, paths, w, P.batch_rows), ("merge_path_kernel",))
+            row["merge_runs_launches"] = read_launches()["merge_runs"] - before
+            row["merge_runs_device_ms"] = merge_ms
+            row["merge_runs_profiled_kernels"] = merge_events
+            check(store.total_rows == events and store.backpressure_stats()["rows"] == events,
+                  f"W = {w}: the store holds {store.total_rows} rows, the files {events}")
+            # Every run is non-empty, so every major merges two or more
+            # non-empty runs and launches the kernel exactly once.
+            check(row["merge_runs_launches"] == row["majors_all_tablets"] > 0,
+                  f"W = {w}: merge_runs launched {row['merge_runs_launches']} times for "
+                  f"{row['majors_all_tablets']} majors")
+            log("pipeline", json.dumps({k: v for k, v in row.items() if k != "per_worker"}))
+            for wr in row["per_worker"]:
+                log("pipeline", f"W = {w} " + json.dumps(wr))
+            stores[w] = store
+            runs.append(row)
+        report["ingest"] = runs
+
+        store = stores[P.n_ingest_workers]
+        tiers = pick_tiers(source, domain_counts)
+        queries = [(tier, Eq("domain", dom), domain_counts[dom]) for tier, dom in tiers.items()]
+        queries.append(("A and 404", And(Eq("domain", tiers["A"]), Eq("status", "404")),
+                        pair_counts[(tiers["A"], "404")]))
+        qp = QueryProcessor(store, w=P.planner_w, device=dev)
+        qp1 = QueryProcessor(stores[1], w=P.planner_w, device=dev)
+        qp_cpu = QueryProcessor(store, w=P.planner_w, device="cpu")
+        # Event keys carry a 16-bit hash, so a few rows of one shard and
+        # second share a key; the index schemes fetch one row per key and
+        # run (the reference's semantics), so their totals may differ from
+        # the files' by at most the rows whose key is shared.
+        shared_key_rows = 0
+        for t in store.event_tablets:
+            _, n_key = np.unique(np.concatenate([r.keys for r in t.snapshot_runs()]),
+                                 return_counts=True)
+            shared_key_rows += int(n_key[n_key > 1].sum())
+        report["shared_key_rows"] = shared_key_rows
+        log("pipeline", f"{shared_key_rows} event rows share their shard and key with another")
+        spec = agg_specs()["a count/status/hour"]
+        rows = []
+        for label, tree, want in queries:
+            for scheme in SCHEMES:
+                stats = QueryStats()
+                t0 = time.perf_counter()
+                it = qp.run_scheme(scheme, 0, T_SPAN, tree, stats=stats)
+                got = 0
+                ttfr = None
+                for blk in it:
+                    ttfr = ttfr if ttfr is not None else time.perf_counter() - t0
+                    got += blk.n
+                total = time.perf_counter() - t0
+                if scheme.endswith("index"):
+                    on_cpu = sum(b.n for b in qp_cpu.run_scheme(scheme, 0, T_SPAN, tree))
+                    check(got == on_cpu and abs(got - want) <= shared_key_rows,
+                          f"path 6 {label} {scheme}: {got} rows, the CPU processor's "
+                          f"{on_cpu}, the files hold {want} ({shared_key_rows} rows share "
+                          f"a key)")
+                else:
+                    check(got == want, f"path 6 {label} {scheme}: {got} rows, the files hold "
+                          f"{want}")
+                rows.append({"query": label, "scheme": scheme, "rows": got, "want": want,
+                             "ttfr_s": ttfr, "total_s": total, "batches": stats.batches,
+                             "plan": stats.plan.describe() if stats.plan else None})
+            t0 = time.perf_counter()
+            agg = qp.aggregate(spec, 0, T_SPAN, tree)
+            agg_s = time.perf_counter() - t0
+            agg1 = qp1.aggregate(spec, 0, T_SPAN, tree)
+            # The two stores' dictionaries number values in the order the
+            # workers met them, so the groups are compared decoded.
+            decoded = [sorted(tuple(sorted(r.items())) for r in a.rows(st))
+                       for a, st in ((agg, store), (agg1, stores[1]))]
+            check(decoded[0] == decoded[1] and int(agg.counts.sum()) == want,
+                  f"path 6 {label} spec (a): W = 4 and W = 1 stores differ, or the counts "
+                  f"sum to {agg.counts.sum()} against {want}")
+            rows.append({"query": label, "scheme": "aggregate a", "rows": int(agg.counts.sum()),
+                         "groups": agg.n_groups, "total_s": agg_s})
+        for r in rows:
+            log("pipeline", "[query] " + json.dumps(r))
+        report["queries"] = rows
+
+        tok = EventTokenizer(store, vocab_size=32768)
+        seq_len = LM_PROMPT_EVENTS * tok.tokens_per_event
+        t0 = time.perf_counter()
+        prompts = next(tok.sequences(0, T_SPAN, seq_len=seq_len, batch=LM_REQUESTS))
+        check(tok.tokens_per_event == 14, f"tokens_per_event {tok.tokens_per_event} != 14")
+        check(prompts.shape == (LM_REQUESTS, seq_len) and int(prompts.min()) >= 0
+              and int(prompts.max()) < 32768, f"token batch {prompts.shape} out of range "
+              f"[{prompts.min()}, {prompts.max()}]")
+        report["tokenize"] = {"seconds": time.perf_counter() - t0, "shape": list(prompts.shape),
+                              "tokens_per_event": tok.tokens_per_event}
+        launches = read_launches()
+        del stores[1]
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+    return report, store, tok, prompts, launches
+
+
+def run_lm_serve(seed, dev, tok, prompts):
+    """Path 7: llcysa-analytics-100m at full width in bf16 (seeded init)
+    behind ServeEngine; decode against prefill in float32 on the same
+    prompts; the per-window NLL scores of examples/cyber_pipeline.py step 5."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.llcysa import CONFIG as cfg
+    from repro_torch.models.model import (
+        cast_params, decode_step, forward_train, init_caches, init_params, prefill,
+    )
+    from repro_torch.serving import ServeEngine
+
+    report = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                         "dtype": cfg.dtype, "params": cfg.param_count()}}
+    base_alloc = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    warm = ServeEngine(cfg, params, max_batch=2, cache_len=LM_CACHE_LEN, device=dev)
+    for p in prompts[:2]:
+        warm.submit(p, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize(dev)
+    eng = ServeEngine(cfg, params, max_batch=LM_MAX_BATCH, cache_len=LM_CACHE_LEN, device=dev)
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+    done = eng.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    check(len(done) == LM_REQUESTS, f"{len(done)} of {LM_REQUESTS} requests finished")
+    for r in done:
+        check(len(r.output) == LM_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in r.output),
+              f"request {r.rid}: {len(r.output)} tokens, range {min(r.output)}..{max(r.output)}")
+    ttft = np.asarray(sorted(r.ttft for r in done))
+    e2e = np.asarray(sorted(r.finished_at - r.submitted_at for r in done))
+    rounds = eng.batcher.history
+    decode_tokens = sum(n for _, n in rounds)
+    report["serve"] = {
+        "requests": len(done), "prompt_tokens": int(prompts.shape[1]),
+        "new_tokens": LM_NEW_TOKENS, "max_batch": LM_MAX_BATCH, "cache_len": LM_CACHE_LEN,
+        "wall_s": wall, "rounds": len(rounds), "round_s_sum": sum(t for t, _ in rounds),
+        "ttft_p50_s": float(np.percentile(ttft, 50)), "ttft_p95_s": float(np.percentile(ttft, 95)),
+        "e2e_p50_s": float(np.percentile(e2e, 50)),
+        "decode_tokens_per_s": decode_tokens / wall,
+        "final_k": eng.batcher.k,
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+        "allocated_before_bytes": base_alloc,
+    }
+    log("lm", json.dumps(report["serve"]))
+    del eng
+
+    # Where a round's time goes: one decode step of every slot and one
+    # prompt's prefill, with host dispatch (cuda_ms) and on the device
+    # alone (every CUDA activity in a profiler window).
+    x = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    s = x.shape[1]
+    slots = init_caches(params, cfg, LM_MAX_BATCH, LM_CACHE_LEN)
+    tok1 = torch.zeros((LM_MAX_BATCH, 1), dtype=torch.int64, device=dev)
+    pos = torch.full((LM_MAX_BATCH,), s, dtype=torch.int32, device=dev)
+
+    def step():
+        return decode_step(params, cfg, {"inputs": tok1}, slots, pos)
+
+    def prefill_one():
+        return prefill(params, cfg, {"inputs": x[:1]}, cache_len=LM_CACHE_LEN)
+
+    report["breakdown"] = {
+        "decode_step_ms": cuda_ms(step), "decode_step_device_ms": device_ms(step, ("",)),
+        "prefill_ms": cuda_ms(prefill_one), "prefill_device_ms": device_ms(prefill_one, ("",)),
+    }
+    log("lm", "one decode step of the 8 slots and one prompt's prefill: "
+        + json.dumps(report["breakdown"]))
+    del slots
+
+    # Decode against prefill in float32: the prompts prefilled once, then
+    # LM_NEW_TOKENS greedy decode steps, each step's logits held to a
+    # prefill over the prompt plus the tokens generated so far.
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = cast_params(params, torch.float32)
+    logits, caches, _ = prefill(p32, cfg32, {"inputs": x}, cache_len=s + LM_NEW_TOKENS)
+    gen = [torch.argmax(logits, dim=-1)]
+    errs = []
+    for j in range(LM_NEW_TOKENS):
+        ld, caches = decode_step(p32, cfg32, {"inputs": gen[-1][:, None]}, caches,
+                                 torch.full((x.shape[0],), s + j, device=dev))
+        seq = torch.cat([x, torch.stack(gen, dim=1)], dim=1)
+        lf, _, _ = prefill(p32, cfg32, {"inputs": seq})
+        errs.append(float((ld - lf).abs().max()))
+        gen.append(torch.argmax(ld, dim=-1))
+    report["decode_vs_prefill"] = {"steps": LM_NEW_TOKENS, "max_abs_err": max(errs),
+                                   "per_step": errs, "atol": LM_DECODE_ATOL}
+    check(max(errs) < LM_DECODE_ATOL, f"float32 decode differs from prefill by {max(errs)}")
+    log("lm", f"float32 decode vs prefill over {LM_NEW_TOKENS} steps of {x.shape[0]} "
+        f"sequences: max |err| {max(errs):.3e} < {LM_DECODE_ATOL}")
+    del p32, caches
+
+    # examples/cyber_pipeline.py step 5: LM surprise per one-hour window.
+    scores = []
+    for w0 in range(0, T_SPAN, 3600):
+        raw = next(tok.sequences(w0, w0 + 3600, seq_len=129, batch=2, seed=w0))
+        raw = torch.from_numpy(raw.astype(np.int64)).to(dev)
+        loss, _ = forward_train(params, cfg, {"inputs": raw[:, :-1], "targets": raw[:, 1:]})
+        scores.append(float(loss))
+    check(all(np.isfinite(scores)), f"window NLL scores not finite: {scores}")
+    report["window_nll"] = scores
+    log("lm", f"window NLL per hour {scores}")
+    return report
+
+
+def host_major_inputs(store, seed):
+    """merge_runs' inputs at the host store's major shape, from index
+    tablet 0 of a path-6 store: a first major's K = max_runs + 1 runs of
+    flush_rows int64 keys (drawn from the tablet's keys, each run sorted),
+    and the tablet's own base and runs as a next major would merge them.
+    Values: (keys (1, N), bounds, lengths (1, K), payload (1, N, 2))."""
+    import numpy as np
+
+    t = store.index_tablets[0]
+    runs = t.snapshot_runs()
+    all_keys = np.concatenate([r.keys for r in runs])
+    k, r = t.max_runs + 1, t.flush_rows
+    rng = np.random.default_rng(seed)
+    first = [np.sort(rng.choice(all_keys, r, replace=False)) for _ in range(k)]
+    out = {f"host ix first major, {k} runs of {r:,}": first}
+    if len(runs) > 1:
+        out[f"host ix tablet 0 base + {len(runs) - 1} runs"] = [x.keys for x in runs]
+    inputs = {}
+    for name, parts in out.items():
+        sizes = [len(x) for x in parts]
+        keys = np.concatenate(parts)[None]
+        inputs[name] = (keys, [0, *np.cumsum(sizes).tolist()],
+                        np.asarray([sizes], np.int32), np.zeros((*keys.shape, 2), np.int32))
+    return inputs
+
+
+def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None):
     import numpy as np
     import torch
     from repro_torch import obs
@@ -1852,9 +2252,10 @@ def run_main_path(seed, dev, size=MAIN_PATH):
     report = {}
     events, chunk = size["events"], size["chunk"]
     source = SyntheticWebProxySource(seed=seed)
-    # Schema and dictionaries for the writer; path 3 fills its tablets with
-    # the events as the writer encoded them (kept here, not encoded twice).
-    store = EventStore(web_proxy_schema())
+    # Schema and dictionaries for the writer; path 3 fills its tablets (on
+    # the card) with the events as the writer encoded them (kept here, not
+    # encoded twice).
+    store = EventStore(web_proxy_schema(), device=dev)
     encoded = []
     encode = store.encode_events
 
@@ -2045,10 +2446,26 @@ def run_main_path(seed, dev, size=MAIN_PATH):
           f"increments of two families")
     del g4_plane
     report["daemon"] = run_daemon(dev)
-    launches = {k: launches_1[k] + launches_2[k] + launches_3[k] + launches_4[k] + launches_5[k]
-                for k in launches_1}
-    report["launches"] = {"total": launches, "path_1": launches_1, "path_2": launches_2,
-                          "path_3": launches_3, "path_4": launches_4, "path_5": launches_5}
+
+    # Path 6: the ingest pipeline into host stores on the card (the launch
+    # counts are zeroed inside, after the files are staged); path 7: the
+    # analytics LM served on path 6's token sequences.
+    report["pipeline"], p_store, tok, prompts, launches_6 = run_pipeline(
+        seed, dev, zero_launches, read_launches, **(pipeline or {}))
+    host_majors = host_major_inputs(p_store, seed)
+    log("launches", "path 6 (pipeline): " + json.dumps(launches_6))
+    check(all(launches_6[k] > 0 for k in ("merge_runs", "filter_scan", "merge_intersect",
+                                           "combine_scan")),
+          f"a kernel of path 6 never launched: {launches_6}")
+    zero_launches()
+    report["lm"] = run_lm_serve(seed, dev, tok, prompts)
+    launches_7 = read_launches()
+    log("launches", "path 7 (LM serve; no kernel of its own): " + json.dumps(launches_7))
+    del p_store, tok
+    paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7)
+    launches = {k: sum(p[k] for p in paths) for k in launches_1}
+    report["launches"] = {"total": launches,
+                          **{f"path_{i}": p for i, p in enumerate(paths, start=1)}}
 
     d = dq.dist
     densities = {}
@@ -2107,6 +2524,14 @@ def run_main_path(seed, dev, size=MAIN_PATH):
             del payload
             merge_rows.append(row)
             log("kernel", json.dumps({"name": "merge_runs", **row}))
+    # The same kernel at the host store's major shape (path 6).
+    for name, inputs in host_majors.items():
+        keys, bounds, lengths, payload = (torch.from_numpy(x).to(dev) if isinstance(
+            x, np.ndarray) else x for x in inputs)
+        row = time_merge(name, keys, bounds, lengths, payload)
+        merge_rows.append(row)
+        log("kernel", json.dumps({"name": "merge_runs", **row}))
+    del host_majors
     dom_a = tiers["A"]
     program = program_tensors(store, Eq("domain", dom_a), dev)
     rich = program_tensors(store, Or(Eq("domain", dom_a), Not(In("status", ("200", "404"))),

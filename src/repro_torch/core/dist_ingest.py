@@ -52,7 +52,7 @@ import torch
 from . import keypack
 from .device import resolve_device
 from .dist_query import DistStore
-from .ingest import BatchWriter, check_shard_guidance
+from .ingest import BatchWriter, IngestMetrics, check_shard_guidance
 from .store import DEFAULT_AGG_BUCKET_SECONDS
 from ..kernels.aggregate_combine import combine_compact
 from ..kernels.common import pow2
@@ -916,8 +916,8 @@ class DistBatchWriter(BatchWriter):
     _next_id = itertools.count()
 
     def __init__(self, store, plane: DistIngestPlane, batch_rows: int = 4096,
-                 writer_id: Optional[int] = None):
-        super().__init__(store, batch_rows=batch_rows)
+                 metrics: Optional[IngestMetrics] = None, writer_id: Optional[int] = None):
+        super().__init__(store, batch_rows=batch_rows, metrics=metrics)
         self.plane = plane
         if writer_id is None:
             writer_id = next(DistBatchWriter._next_id)

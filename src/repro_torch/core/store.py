@@ -6,9 +6,11 @@ this package calls.
   index table   key = field|value|rev_ts     cols = event key (2 lanes)
   aggregate     key = field|value|bucket     cols = count
 
-The device plane takes its schema, dictionaries, indexed fields and
-aggregate bucketing from a store (DistIngestPlane.for_store,
-DistBatchWriter), and the store's own tablets are the CPU oracle.
+Runs stay numpy arrays on the host; the tablets' compactions (sort,
+merge, combine) run on the store's device, "cuda" unless the caller
+passes device="cpu". The device plane takes its schema, dictionaries,
+indexed fields and aggregate bucketing from a store
+(DistIngestPlane.for_store, DistBatchWriter).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import keypack
+from .device import resolve_device
 from .schema import EventSchema, FieldDictionary
 from .tables import AggregateTablet, Tablet
 
@@ -40,13 +43,16 @@ def join_key64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
 
 
 class EventStore:
-    """One data source's three tables, sharded n_shards ways."""
+    """One data source's three tables, sharded n_shards ways, compacting
+    on ``device`` (default "cuda"; raises without CUDA unless the caller
+    passes device="cpu")."""
 
     def __init__(self, schema: EventSchema, n_shards: int = 8, flush_rows: int = 32768,
                  max_runs: int = 8, agg_bucket_seconds: int = DEFAULT_AGG_BUCKET_SECONDS,
-                 seed: int = 0):
+                 seed: int = 0, device="cuda"):
         if n_shards > keypack.MAX_SHARDS:
             raise ValueError(f"n_shards > {keypack.MAX_SHARDS}")
+        self.device = resolve_device(device)
         self.schema = schema
         self.n_shards = n_shards
         self.agg_bucket_seconds = agg_bucket_seconds
@@ -54,14 +60,16 @@ class EventStore:
             f.name: FieldDictionary(f.name) for f in schema.fields
         }
         self.event_tablets: List[Tablet] = [
-            Tablet(s, width=schema.n_fields, flush_rows=flush_rows, max_runs=max_runs)
+            Tablet(s, width=schema.n_fields, flush_rows=flush_rows, max_runs=max_runs,
+                   device=self.device)
             for s in range(n_shards)
         ]
         self.index_tablets: List[Tablet] = [
-            Tablet(s, width=2, flush_rows=flush_rows, max_runs=max_runs)
+            Tablet(s, width=2, flush_rows=flush_rows, max_runs=max_runs, device=self.device)
             for s in range(n_shards)
         ]
-        self.agg_tablet = AggregateTablet(0, flush_rows=flush_rows, max_runs=max_runs)
+        self.agg_tablet = AggregateTablet(0, flush_rows=flush_rows, max_runs=max_runs,
+                                          device=self.device)
         self._indexed_field_ids = np.asarray(
             [schema.field_id(f.name) for f in schema.fields if f.indexed], dtype=np.int64
         )
@@ -164,3 +172,14 @@ class EventStore:
         """Flush, then major-compact every tablet to one run."""
         for t in self._tablets():
             t.compact()
+
+    def backpressure_stats(self) -> Dict[str, float]:
+        """The event tablets' compaction telemetry (the ingest experiments'
+        backpressure signal)."""
+        evs = self.event_tablets
+        return {
+            "rows": self.total_rows,
+            "minor_compactions": sum(t.minor_compactions for t in evs),
+            "major_compactions": sum(t.major_compactions for t in evs),
+            "blocked_seconds": sum(t.blocked_seconds for t in evs),
+        }

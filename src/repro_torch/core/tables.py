@@ -6,8 +6,11 @@ copy of the reference's core/tables.py cut to what this package calls.
     runs > max_runs
       --major compaction (blocks the writer: backpressure)-->  one run
 
-Major compaction merges through kernels/merge_runs::merge_sorted_runs.
-The host store is the CPU oracle of the device plane.
+Runs stay numpy arrays on the host, as in the reference; the data plane
+of both compactions runs on the tablet's device (the reference jits them
+onto its default device): the minor compaction's stable sort, the major
+compaction's merge (kernels/merge_runs::merge_sorted_runs, which launches
+the merge_runs kernel on the card) and AggregateTablet's combiner.
 """
 from __future__ import annotations
 
@@ -17,24 +20,36 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from ..kernels.merge_runs import merge_sorted_runs
+from .device import resolve_device
 
 
-def _sort_run(keys: np.ndarray, cols: np.ndarray):
-    """Sort a (keys, cols) batch by key (stable) — minor compaction."""
-    order = np.argsort(keys, kind="stable")
-    return keys[order], cols[order]
+def _sort_run(keys: np.ndarray, cols: np.ndarray, device: torch.device):
+    """Sort a (keys, cols) batch by key (stable) on ``device`` — minor
+    compaction. Returns numpy arrays."""
+    k, order = torch.sort(torch.from_numpy(keys).to(device), stable=True)
+    c = torch.from_numpy(cols).to(device)[order]
+    return k.cpu().numpy(), c.cpu().numpy()
 
 
-def _combine_sorted(keys: np.ndarray, vals: np.ndarray):
-    """Combiner: sum vals (as int64) of equal adjacent keys of a sorted
-    run. Returns (unique keys, sums)."""
+def _combine_sorted(keys: np.ndarray, vals: np.ndarray, device: torch.device):
+    """Combiner on ``device``: sum vals (as int64) of equal adjacent keys
+    of a sorted run. Returns numpy (unique keys, sums)."""
     if keys.size == 0:
         return keys, vals.astype(np.int64)
-    is_head = np.concatenate([[True], keys[1:] != keys[:-1]])
-    heads = np.flatnonzero(is_head)
-    return keys[heads], np.add.reduceat(vals.astype(np.int64), heads)
+    k = torch.from_numpy(keys).to(device)
+    v = torch.from_numpy(np.ascontiguousarray(vals)).to(device).to(torch.int64)
+    is_head = torch.ones_like(k, dtype=torch.bool)
+    is_head[1:] = k[1:] != k[:-1]
+    heads = torch.nonzero(is_head).squeeze(1)
+    # Segment sums as differences of the inclusive prefix sum at each
+    # segment's last entry (exact in int64).
+    ends = torch.cat([heads[1:], heads.new_tensor([k.numel()])]) - 1
+    at_end = torch.cumsum(v, 0)[ends]
+    sums = at_end - torch.cat([at_end.new_zeros(1), at_end[:-1]])
+    return k[heads].cpu().numpy(), sums.cpu().numpy()
 
 
 @dataclass
@@ -56,11 +71,14 @@ class SortedRun:
 
 
 class Tablet:
-    """One shard of one table. Thread-safe for concurrent inserts."""
+    """One shard of one table. Thread-safe for concurrent inserts. Its
+    compactions run on ``device`` (default "cuda"; raises without CUDA
+    unless the caller passes "cpu")."""
 
     def __init__(self, shard: int, width: int, flush_rows: int = 32768,
-                 max_runs: int = 8, col_dtype=np.int32):
+                 max_runs: int = 8, col_dtype=np.int32, device="cuda"):
         self.shard = shard
+        self.device = resolve_device(device)
         self.width = width
         self.flush_rows = flush_rows
         self.max_runs = max_runs
@@ -97,11 +115,11 @@ class Tablet:
         keys = np.concatenate(self._mem_keys)
         cols = np.concatenate(self._mem_cols)
         self._mem_keys, self._mem_cols, self._mem_rows = [], [], 0
-        self.runs.append(SortedRun(*_sort_run(keys, cols)))
+        self.runs.append(SortedRun(*_sort_run(keys, cols, self.device)))
         self.minor_compactions += 1
 
     def _major_compact(self) -> None:
-        k, c = merge_sorted_runs([(r.keys, r.cols) for r in self.runs])
+        k, c = merge_sorted_runs([(r.keys, r.cols) for r in self.runs], device=self.device)
         self.runs = [SortedRun(k, c)]
         self.major_compactions += 1
 
@@ -159,8 +177,8 @@ class AggregateTablet(Tablet):
         super().__init__(shard, width=1, **kw)
 
     def _major_compact(self) -> None:
-        k, c = merge_sorted_runs([(r.keys, r.cols) for r in self.runs])
-        ukeys, sums = _combine_sorted(k, c[:, 0])
+        k, c = merge_sorted_runs([(r.keys, r.cols) for r in self.runs], device=self.device)
+        ukeys, sums = _combine_sorted(k, c[:, 0], self.device)
         self.runs = [SortedRun(ukeys, sums[:, None].astype(self.col_dtype))]
         self.major_compactions += 1
 

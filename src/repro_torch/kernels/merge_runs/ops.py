@@ -126,11 +126,14 @@ def merge_pair_device(a_keys, a_cols, a_n, b_keys, b_cols, b_n):
 
 def merge_sorted_runs(
     runs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Merge K sorted (keys int64 [n_i], cols [n_i, w]) host runs into one,
-    stable in run order. Returns (keys [n], cols [n, w]), n = sum n_i.
-    When every run is empty the cols keep their width w (the reference
-    returns (0, 0) there)."""
+    stable in run order, on ``device``: the concatenated runs go there, so
+    on the card every merge of two or more non-empty runs launches the
+    kernel once. Returns numpy (keys [n], cols [n, w]), n = sum n_i. When
+    every run is empty the cols keep their width w (the reference returns
+    (0, 0) there)."""
     runs = [(np.asarray(k, np.int64), np.asarray(c)) for k, c in runs]
     w = runs[0][1].shape[1] if runs else 0
     col_dtype = runs[0][1].dtype if runs else np.int32
@@ -139,10 +142,12 @@ def merge_sorted_runs(
         return np.empty(0, np.int64), np.empty((0, w), col_dtype)
     if len(runs) == 1:
         return runs[0]
+    device = torch.device(device)
     sizes = [k.size for k, _ in runs]
-    keys = torch.from_numpy(np.concatenate([k for k, _ in runs]))[None]
-    cols = torch.from_numpy(np.concatenate([c for _, c in runs]).astype(col_dtype, copy=False))[None]
+    keys = torch.from_numpy(np.concatenate([k for k, _ in runs]))[None].to(device)
+    cols = torch.from_numpy(
+        np.concatenate([c for _, c in runs]).astype(col_dtype, copy=False))[None].to(device)
     ranks = merge_ranks(keys, np.concatenate([[0], np.cumsum(sizes)]),
-                        torch.tensor([sizes], dtype=torch.int32))
+                        torch.tensor([sizes], dtype=torch.int32, device=device))
     mk, mc = _scatter_by_rank(keys, cols, ranks)
-    return mk[0].numpy(), mc[0].numpy()
+    return mk[0].cpu().numpy(), mc[0].cpu().numpy()

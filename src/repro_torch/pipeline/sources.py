@@ -1,9 +1,14 @@
 """Synthetic web-proxy log source — the paper's experimental data (§IV);
-a numpy copy of the reference's pipeline/sources.py cut to what
-chip_smoke.py calls. Domain popularity follows a Zipf law, which gives
-the paper's Query A/B/C selectivity tiers."""
+a numpy copy of the reference's pipeline/sources.py.
+
+The generator emits raw tab-separated text lines, so ingest workers do
+real parsing work (the paper puts its per-client ceiling on client-side
+costs). Domain popularity follows a Zipf law, which gives the paper's
+Query A/B/C selectivity tiers. Files written with the same seed are
+byte-identical to the reference's."""
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -71,6 +76,27 @@ class SyntheticWebProxySource:
             ))
             for i in range(n)
         ]
+
+    def write_files(self, directory: str, n_files: int, lines_per_file: int, t_start: int,
+                    t_stop: int) -> List[str]:
+        """Stage files on the 'central filesystem' (paper §II): file i holds
+        lines_per_file lines over its own slice of [t_start, t_stop]."""
+        os.makedirs(directory, exist_ok=True)
+        paths = []
+        span = (t_stop - t_start) // max(n_files, 1)
+        for i in range(n_files):
+            p = os.path.join(directory, f"webproxy_{i:05d}.log")
+            lo = t_start + i * span
+            with open(p, "w") as f:
+                f.write("\n".join(self.gen_lines(lines_per_file, lo, lo + span)) + "\n")
+            paths.append(p)
+        return paths
+
+
+def parse_web_proxy_line(line: str) -> Tuple[int, Dict[str, str]]:
+    """Parse one raw line -> (ts, field values)."""
+    parts = line.rstrip("\n").split("\t")
+    return int(parts[0]), dict(zip(FIELDS, parts[1:]))
 
 
 def parse_web_proxy_lines(lines: Sequence[str]) -> Tuple[np.ndarray, Dict[str, List[str]]]:

@@ -104,7 +104,7 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     ts, vals = _gen(rng, args.rows)
-    store = EventStore(web_proxy_schema(), n_shards=4)
+    store = EventStore(web_proxy_schema(), n_shards=4, device=args.device)
     store.ingest(ts, vals)
     store.flush_all()
     store.compact_all()

@@ -69,7 +69,7 @@ def stores():
         "bytes_out": rng.integers(100, 5000, N).astype(str).tolist(),
     }
     js = JaxEventStore(jax_schema(), n_shards=4, flush_rows=1024)
-    ps = EventStore(web_proxy_schema(), n_shards=4, flush_rows=1024)
+    ps = EventStore(web_proxy_schema(), n_shards=4, flush_rows=1024, device="cpu")
     for s in (js, ps):
         s.ingest(ts, data)
         s.flush_all()

@@ -46,7 +46,7 @@ def gen_events(seed, n):
 
 def make_twin(seed, n, sizes, **proc_kw):
     ts, vals = gen_events(seed, n)
-    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     for s in (jstore, pstore):
         s.ingest(ts, vals)  # the host oracles
         s.flush_all()

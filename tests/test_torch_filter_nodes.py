@@ -104,7 +104,7 @@ def gen_events(seed=42, n=N):
 def stores():
     ts, vals = gen_events()
     kw = dict(n_shards=4, flush_rows=512, max_runs=4, agg_bucket_seconds=600)
-    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw)
+    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw, device="cpu")
     for i in range(0, N, 600):
         part = {k: v[i: i + 600] for k, v in vals.items()}
         js.ingest(ts[i: i + 600], part)
@@ -232,7 +232,7 @@ def _planner_stores():
                        n_shards=2, agg_bucket_seconds=100)
     ps = EventStore(EventSchema("planner_test", [FieldSpec(f, indexed=f != "raw")
                                                  for f in fields]),
-                    n_shards=2, agg_bucket_seconds=100)
+                    n_shards=2, agg_bucket_seconds=100, device="cpu")
     js.ingest(ts, vals)
     ps.ingest(ts, vals)
     return js, ps
@@ -301,7 +301,7 @@ def test_host_aggregate_matches_reference(stores, i):
 @pytest.fixture(scope="module")
 def planes():
     ts, vals = gen_events(seed=5, n=1200)
-    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     sizes = dict(mem_rows=64, max_runs=2, append_rows=32)
     jplane = JaxPlane.for_store(jstore, make_dev_mesh(1, 1), capacity=1024,
                                 tablets_per_device=4, **sizes)

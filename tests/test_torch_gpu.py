@@ -812,3 +812,61 @@ def test_serve_daemon_on_the_card_writes_an_incident_bundle(cuda, tmp_path, caps
     trace = json.loads((bundles[0] / "trace.json").read_text())
     assert obs.validate_chrome_trace(trace) == []
     assert any(e.get("ph") == "X" for e in trace["traceEvents"])
+
+
+def test_host_store_on_the_card_matches_the_cpu_store(cuda, tmp_path):
+    """Four ingest workers into a host EventStore on the card and one into
+    the same store on the CPU: the card store's minor sorts, majors (one
+    merge_runs launch per major of two or more runs) and combiner give the
+    CPU store's rows, densities and aggregates; W = 1 on both devices gives
+    equal tablets run for run."""
+    from repro_torch.core import AggregateSpec, QueryProcessor
+    from repro_torch.pipeline import IngestWorkerPool, SyntheticWebProxySource
+
+    paths = SyntheticWebProxySource(n_domains=200, seed=13).write_files(
+        str(tmp_path), n_files=8, lines_per_file=3000, t_start=0, t_stop=7200)
+    kw = dict(n_shards=4, flush_rows=2048, max_runs=3)
+
+    def ingest(device, n_workers):
+        store = EventStore(web_proxy_schema(), device=device, **kw)
+        pool = IngestWorkerPool(store, n_workers=n_workers)
+        for p in paths:
+            pool.submit_file(p)
+        pool.drain(timeout_s=300)
+        return store
+
+    def tablets(store):
+        return store.event_tablets + store.index_tablets + [store.agg_tablet]
+
+    merge_ops.launches = 0
+    card4 = ingest(cuda, 4)
+    majors = sum(t.major_compactions for t in tablets(card4))
+    assert majors > 0 and merge_ops.launches == majors
+    assert all(t.device == cuda for t in tablets(card4))
+    card1, cpu1 = ingest(cuda, 1), ingest("cpu", 1)
+    for a, b in zip(tablets(card1), tablets(cpu1)):
+        assert len(a.runs) == len(b.runs)
+        for ra, rb in zip(a.runs, b.runs):
+            np.testing.assert_array_equal(ra.keys, rb.keys)
+            np.testing.assert_array_equal(ra.cols, rb.cols)
+    assert card4.total_rows == cpu1.total_rows == 24_000
+    spec = AggregateSpec(group_by=("status",), op="count", time_bucket_s=3600)
+    want = QueryProcessor(cpu1, device="cpu").aggregate(spec, 0, 7200)
+
+    def decoded(res, store):
+        return sorted(tuple(sorted(r.items())) for r in res.rows(store))
+
+    for store in (card4, card1):
+        got = QueryProcessor(store, device=cuda).aggregate(spec, 0, 7200)
+        if store is card1:  # one worker: the same dictionary codes as cpu1's
+            for k in ("gids", "values", "counts"):
+                np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+        # Four workers number dictionary values in the order they met them.
+        assert decoded(got, store) == decoded(want, cpu1)
+        dom = SyntheticWebProxySource(n_domains=200, seed=13).domain_by_popularity(0.0)
+        assert store.agg_count("domain", dom, 0, 7200) == cpu1.agg_count("domain", dom, 0, 7200)
+    merge_ops.launches = 0
+    card4.compact_all()
+    assert all(len(t.runs) == 1 for t in tablets(card4))
+    assert merge_ops.launches == sum(t.major_compactions for t in tablets(card4)) - majors
+    assert sum(t.n_rows for t in card4.event_tablets) == 24_000

@@ -57,7 +57,7 @@ def test_dictionaries_and_encoding_match_reference():
     rng = np.random.default_rng(1)
     vals = {"domain": rng.choice(["x.com", "y.com", "z.org"], 300).tolist(),
             "status": rng.choice(["200", "404"], 300).tolist()}
-    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     np.testing.assert_array_equal(ps.encode_events(np.zeros(300), vals),
                                   js.encode_events(np.zeros(300), vals))
     for name in ("domain", "status", "method"):
@@ -83,7 +83,7 @@ def trees(lib):
 def test_compiled_programs_match_reference(i):
     vals = {"domain": ["x.com", "y.com", "z.org"], "status": ["200", "404", "200"],
             "method": ["GET", "PUT", "POST"]}
-    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     js.encode_events(np.zeros(3), vals)
     ps.encode_events(np.zeros(3), vals)
     jp = jax_compile_tree(js, trees((JEq, JIn, JNot, JAnd, JOr))[i])
@@ -96,7 +96,7 @@ def test_compiled_programs_match_reference(i):
 
 
 def test_too_deep_tree_is_rejected_like_the_reference():
-    ps, js = EventStore(web_proxy_schema()), JaxEventStore(jax_schema())
+    ps, js = EventStore(web_proxy_schema(), device="cpu"), JaxEventStore(jax_schema())
     tree, jtree = pf.Eq("domain", "x"), JEq("domain", "x")
     for _ in range(8):  # each right-nested AND needs one more stack slot
         tree, jtree = pf.And(pf.Eq("status", "y"), tree), JAnd(JEq("status", "y"), jtree)
@@ -129,7 +129,7 @@ def test_alg1_batches_match_reference(seed):
 
 @pytest.mark.parametrize("i", range(7))
 def test_filter_plans_match_reference(i):
-    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     jt = trees((JEq, JIn, JNot, JAnd, JOr))[i]
     pt = trees((pf.Eq, pf.In, pf.Not, pf.And, pf.Or))[i]
     jp = jax_plan_query(js, jt, 0, 3600, use_index=False)
@@ -154,7 +154,7 @@ def planner_stores():
     vals["status"][109:209] = ["s100"] * 100
     ts = np.sort(rng.integers(0, 14400, n))
     kw = dict(n_shards=3, flush_rows=500, max_runs=2)
-    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw)
+    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw, device="cpu")
     js.ingest(ts, vals)
     ps.ingest(ts, vals)
     return js, ps
@@ -216,7 +216,7 @@ def test_host_store_tablets_match_reference():
     src = JaxSource(seed=5)
     ts, vals = jax_parse(src.gen_lines(3000, 0, 14400))
     kw = dict(n_shards=3, flush_rows=400, max_runs=2, seed=9)
-    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw)
+    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw, device="cpu")
     jw, pw = JaxBatchWriter(js, batch_rows=700), BatchWriter(ps, batch_rows=700)
     for off in range(0, 3000, 450):
         part = {k: v[off: off + 450] for k, v in vals.items()}

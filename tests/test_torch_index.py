@@ -55,7 +55,7 @@ def gen_events(seed, n):
 
 def make_twin(seed, n, capacity, sizes, **proc_kw):
     ts, vals = gen_events(seed, n)
-    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     jstore.ingest(ts, vals)
     pstore.ingest(ts, vals)  # the port's host oracle
     jplane = JaxPlane.for_store(jstore, make_dev_mesh(1, 1), capacity=capacity,
@@ -209,7 +209,7 @@ def test_fold_only_compact_step_reuses_every_sealed_family():
 
 def test_index_less_plane_plans_every_query_as_a_scan():
     ts, vals = gen_events(3, 400)
-    store = EventStore(web_proxy_schema())
+    store = EventStore(web_proxy_schema(), device="cpu")
     plane = DistIngestPlane(store.schema.n_fields, capacity=1024, n_tablets=2, device="cpu",
                             **SIZES)
     w = DistBatchWriter(store, plane, batch_rows=100)

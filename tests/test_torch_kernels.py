@@ -184,7 +184,7 @@ def test_merge_sorted_runs_matches_reference(seed):
         runs.append((np.sort(rng.integers(0, 50, n)).astype(np.int64) + (1 << 50),
                      rng.integers(0, 100, (n, 3)).astype(np.int32)))
     runs.append((np.arange(3, dtype=np.int64), np.ones((3, 3), np.int32)))
-    gk, gc = merge_sorted_runs(runs)
+    gk, gc = merge_sorted_runs(runs, device="cpu")
     wk, wc = jax_merge_sorted_runs(runs, backend="ref")
     np.testing.assert_array_equal(gk, wk)
     np.testing.assert_array_equal(gc, wc)
@@ -196,7 +196,7 @@ def test_merge_sorted_runs_keeps_width_when_every_run_is_empty():
     # run is empty (src/repro/kernels/merge_runs/ops.py:42-44); the port keeps
     # the payload width.
     runs = [(np.empty(0, np.int64), np.empty((0, 3), np.int32))] * 2
-    gk, gc = merge_sorted_runs(runs)
+    gk, gc = merge_sorted_runs(runs, device="cpu")
     wk, wc = jax_merge_sorted_runs(runs, backend="ref")
     assert gk.shape == wk.shape == (0,)
     assert gc.shape == (0, 3) and wc.shape == (0, 0)
@@ -214,7 +214,7 @@ def stores():
     n = 700
     vals = {"domain": rng.choice(DOMAINS, n).tolist(), "method": rng.choice(METHODS, n).tolist(),
             "status": rng.choice(STATUS, n).tolist()}
-    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     cols = js.encode_events(np.zeros(n), vals)
     np.testing.assert_array_equal(ps.encode_events(np.zeros(n), vals), cols)
     return js, ps, cols

@@ -235,7 +235,7 @@ def test_registry_disabled_is_noop_and_kinds_collide():
 def test_every_registry_joins_the_exports():
     """A plane's private registry shows up in all_registries() and in the
     process-wide snapshot and text, beside the default registry."""
-    store = EventStore(web_proxy_schema(), n_shards=2)
+    store = EventStore(web_proxy_schema(), n_shards=2, device="cpu")
     plane = DistIngestPlane.for_store(store, capacity=64, n_tablets=2, mem_rows=16,
                                       device="cpu")
     plane._m_blocked.inc(0.5, writer=3)
@@ -418,7 +418,7 @@ def test_flight_captures_the_serve_plane_with_tracing_disabled():
     vals = {"domain": rng.choice(["a.com", "b.com", "rare.net"], p=[0.6, 0.38, 0.02],
                                  size=n).tolist(),
             "status": rng.choice(["200", "404"], size=n).tolist()}
-    store = EventStore(web_proxy_schema(), n_shards=2)
+    store = EventStore(web_proxy_schema(), n_shards=2, device="cpu")
     store.ingest(ts, vals)
     store.flush_all()
     obs.flight_enable()

@@ -73,7 +73,7 @@ class Twin:
 
     def __init__(self, capacity, seed=11):
         self.jstore = JaxEventStore(jax_schema(), n_shards=2)
-        self.pstore = EventStore(web_proxy_schema(), n_shards=2)
+        self.pstore = EventStore(web_proxy_schema(), n_shards=2, device="cpu")
         t = SIZES["n_tablets"]
         self.jplane = JaxPlane.for_store(
             self.jstore, make_dev_mesh(1, 1), capacity=capacity, tablets_per_device=t,
@@ -202,7 +202,7 @@ def test_plane_requires_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DistIngestPlane(3, capacity=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        DistIngestPlane.for_store(EventStore(web_proxy_schema()), capacity=64)
+        DistIngestPlane.for_store(EventStore(web_proxy_schema(), device="cpu"), capacity=64)
 
 
 def test_sharded_plane_is_left_for_a_later_slice():

@@ -152,7 +152,7 @@ def stores():
     vals = {"domain": rng.choice(DOMAINS, n).tolist(),
             "status": rng.choice(["200", "404", "500"], n).tolist(),
             "bytes_in": rng.integers(0, 2000, n).astype(str).tolist()}
-    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     cols = js.encode_events(np.zeros(n), vals)
     np.testing.assert_array_equal(ps.encode_events(np.zeros(n), vals), cols)
     return js, ps, cols
@@ -261,7 +261,7 @@ def big_in_twin():
     vals = {"domain": rng.choice(DOMAINS, n, p=[0.4, 0.3, 0.2, 0.1]).tolist(),
             "status": rng.choice(["200", "404"], n, p=[0.8, 0.2]).tolist(),
             "bytes_in": (rng.permutation(1_000_000)[:n] + (1 << 20)).astype(str).tolist()}
-    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     for s in (jstore, pstore):
         s.ingest(ts, vals)
         s.flush_all()

@@ -47,7 +47,7 @@ def gen_events(seed, n):
 @pytest.fixture(scope="module")
 def twin():
     ts, vals = gen_events(21, 1300)
-    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    jstore, pstore = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     # Host oracle: the same events through the port's host EventStore.
     pstore.ingest(ts, vals)
     jstore.ingest(ts, vals)

@@ -51,7 +51,7 @@ def gen_events(seed, n):
 def replays():
     ts, vals = gen_events(3, 6000)
     kw = dict(n_shards=4, flush_rows=1024, max_runs=3)
-    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw)
+    js, ps = JaxEventStore(jax_schema(), **kw), EventStore(web_proxy_schema(), **kw, device="cpu")
     for s in (js, ps):
         for off in range(0, len(ts), 1500):
             s.ingest(ts[off: off + 1500], {k: v[off: off + 1500] for k, v in vals.items()})
@@ -175,7 +175,7 @@ def test_execute_batched_totals_over_several_batches(replays):
 
 def _twin(n_groups=1, sizes=None):
     sizes = sizes or dict(mem_rows=48, max_runs=2, append_rows=20)
-    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema())
+    js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")
     jplane = JaxPlane.for_store(js, make_dev_mesh(1, 1), capacity=1024,
                                 tablets_per_device=TABLETS, n_groups=n_groups, **sizes)
     pplane = DistIngestPlane.for_store(ps, capacity=1024, n_tablets=TABLETS, n_groups=n_groups,

@@ -83,7 +83,7 @@ class Served:
 
     def __init__(self):
         ts, vals = _gen(seed=23, n=8_000)
-        self.store = EventStore(web_proxy_schema(), n_shards=4)
+        self.store = EventStore(web_proxy_schema(), n_shards=4, device="cpu")
         self.jstore = jcore.EventStore(jcore.web_proxy_schema(), n_shards=4)
         for s in (self.store, self.jstore):
             s.ingest(ts, vals)
@@ -194,6 +194,7 @@ def test_query_profile_stages_match_reference():
             p.note_deliver(dlv, i == 0)
     regs = MetricsRegistry("t_profile_port"), jobs.MetricsRegistry("t_profile_ref")
     probe = ttfr_event_probe()
+    probe()  # drain the TTFRs earlier tests in this process committed
     ours.commit(0.0125, registry=regs[0])
     ref.commit(0.0125, registry=regs[1])
     ours.commit(9.0, registry=regs[0])  # a second commit is ignored
@@ -466,7 +467,7 @@ def test_error_probes(served):
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the default device runs")
-    store = EventStore(web_proxy_schema(), n_shards=2)
+    store = EventStore(web_proxy_schema(), n_shards=2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DistIngestPlane.for_store(store, capacity=64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -105,7 +105,7 @@ def _same_result(a, b):
 @pytest.mark.parametrize("n_writers", [2, 3, 4])
 def test_sharded_plane_matches_single_group_oracle(n_groups, n_writers):
     seed = 100 * n_groups + n_writers
-    store = EventStore(web_proxy_schema(), n_shards=2)
+    store = EventStore(web_proxy_schema(), n_shards=2, device="cpu")
     oracle = _plane(store, n_groups=1, mem_rows=64)
     sharded = _plane(store, n_groups=n_groups, mem_rows=64)
     rts, cols, tab, ts, varr = _encoded(store, seed, 1200)
@@ -172,7 +172,7 @@ def _assert_group_states_equal(jplane, pplane, where):
 
 def test_serial_sharded_ingest_matches_reference_group_for_group():
     jstore = JaxEventStore(jax_schema(), n_shards=2)
-    pstore = EventStore(web_proxy_schema(), n_shards=2)
+    pstore = EventStore(web_proxy_schema(), n_shards=2, device="cpu")
     sizes = dict(mem_rows=48, max_runs=2, append_rows=20)
     jplane = JaxPlane.for_store(jstore, make_dev_mesh(1, 1), capacity=160,
                                 tablets_per_device=TABLETS, n_groups=4, **sizes)
@@ -208,7 +208,7 @@ def test_serial_sharded_ingest_matches_reference_group_for_group():
 
 
 def test_composite_publish_aliases_untouched_groups():
-    store = EventStore(web_proxy_schema(), n_shards=1)
+    store = EventStore(web_proxy_schema(), n_shards=1, device="cpu")
     plane = _plane(store, n_groups=2)
     rts, cols, tab, _, _ = _encoded(store, 3, 600)
     plane.ingest(rts, cols, tab)
@@ -229,7 +229,7 @@ def test_composite_publish_aliases_untouched_groups():
 
 
 def test_per_tablet_gauges_snapshot_host_mirrors():
-    store = EventStore(web_proxy_schema(), n_shards=1)
+    store = EventStore(web_proxy_schema(), n_shards=1, device="cpu")
     plane = _plane(store, n_groups=2, mem_rows=128)
     rts, cols, tab, _, _ = _encoded(store, 5, 900)
     plane.ingest(rts, cols, tab)
@@ -249,7 +249,7 @@ def test_per_tablet_gauges_snapshot_host_mirrors():
 def test_publish_refreshes_only_the_gauges_of_changed_groups(monkeypatch):
     """A publish of clean groups sets no gauge; after an append to one
     group only its tablets are set, and every gauge equals the mirrors."""
-    store = EventStore(web_proxy_schema(), n_shards=1)
+    store = EventStore(web_proxy_schema(), n_shards=1, device="cpu")
     plane = _plane(store, n_groups=2, mem_rows=128)
     rts, cols, tab, _, _ = _encoded(store, 6, 400)
     plane.ingest(rts, cols, tab)
@@ -271,7 +271,7 @@ def test_publish_refreshes_only_the_gauges_of_changed_groups(monkeypatch):
 
 
 def test_blocked_per_writer_sums_to_scalar_across_groups():
-    store = EventStore(web_proxy_schema(), n_shards=1)
+    store = EventStore(web_proxy_schema(), n_shards=1, device="cpu")
     plane = _plane(store, n_groups=4, mem_rows=64, max_runs=2)
     rts, cols, tab, _, _ = _encoded(store, 9, 3000)
     _threaded_ingest(plane, rts, cols, tab, n_writers=3, chunk=200)
@@ -291,7 +291,7 @@ def test_blocked_per_writer_sums_to_scalar_across_groups():
 
 
 def test_compact_step_folds_the_most_indebted_group():
-    store = EventStore(web_proxy_schema(), n_shards=1)
+    store = EventStore(web_proxy_schema(), n_shards=1, device="cpu")
     plane = _plane(store, n_groups=4, mem_rows=32, max_runs=4)
     rts, cols, _, _, _ = _encoded(store, 11, 400)
     # One tablet per group; a full memtable (32 rows) flushes into a run
@@ -316,7 +316,7 @@ def test_compact_step_folds_the_most_indebted_group():
 
 
 def test_group_validation_and_single_group_views():
-    store = EventStore(web_proxy_schema(), n_shards=1)
+    store = EventStore(web_proxy_schema(), n_shards=1, device="cpu")
     with pytest.raises(ValueError, match="divide"):
         _plane(store, n_groups=3)
     with pytest.raises(ValueError, match=">= 1"):
@@ -335,7 +335,7 @@ def test_group_validation_and_single_group_views():
 
 
 def test_writer_routing_spreads_over_groups():
-    store = EventStore(web_proxy_schema(), n_shards=2)
+    store = EventStore(web_proxy_schema(), n_shards=2, device="cpu")
     plane = _plane(store, n_groups=4)
     ts, vals = _events(13, 2000)
     w = DistBatchWriter(store, plane, batch_rows=500)
