@@ -21,7 +21,7 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  seven paths at full size, each with every kernel launch count
+  main path  eight paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -159,6 +159,32 @@ no result line):
                 per-hour NLL of examples/cyber_pipeline.py step 5 must be
                 finite. The LM has no kernel of its own: its launches are
                 read and reported.
+             8. the analytics LM's training path: llcysa-analytics-100m at
+                full width in bf16 (seeded init, float32 Adam state)
+                through build_train_step with remat at train_4k's sequence
+                length, S = 4,096, for 20 steps of OptConfig(lr 1e-3,
+                warmup 5, total 20); the global batch is 16 sequences of
+                path 6's tokens (EventTokenizer.sequences(0, 4 h,
+                seq_len 4,097, batch 16) on the W = 4 store) as 4
+                microbatches of 4, cut from train_4k's 256 to fit the
+                run's time. It reports the loss at every step, step ms
+                with host dispatch (median of steps 2-20 without the
+                profiled one), one step's device ms in a torch.profiler
+                window, tokens/s, peak memory over steps 1-10 and model
+                FLOPs per step (6 N per token plus the causal attention's,
+                with and without the remat recompute) as a share of the
+                dense bf16 peak. The steps run under
+                torch.use_deterministic_algorithms. Checks: every loss
+                finite and the last below 0.9 x the first; a
+                CheckpointManager save after step 10 restores on the card
+                (parameters and optimizer state) bit for bit with dtypes,
+                and two steps resumed from it equal the uninterrupted
+                steps 11-12 bit for bit; two compress_grads steps (4
+                sequences as 2 microbatches) give finite losses and a
+                non-zero error tree; the flash backward at one
+                (1, 4,096, 12, 64) float32 sequence agrees with autograd
+                of the naive attention within atol 1e-4 + rtol 1e-3. It
+                has no kernel of its own either.
              Paths 1-3 also run the Cmp and Match filter nodes:
              domain = A AND bytes_out < 1000 on all four schemes and on
              path 3 with spec (a), Match(domain, "d0000") (the ten most
@@ -2190,6 +2216,257 @@ def run_lm_serve(seed, dev, tok, prompts):
     return report
 
 
+# Path 8: llcysa-analytics-100m trained at full width on path 6's token
+# sequences at train_4k's length, the global batch cut from 256 to 16 (4
+# microbatches of 4) to fit the run's time.
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 16
+TRAIN_ACCUM = 4
+TRAIN_STEPS = 20
+TRAIN_CKPT_STEP = 10  # the CheckpointManager save the resume check restarts from
+TRAIN_PROFILED_STEP = 15  # this step runs in a torch.profiler window
+# The two compress_grads steps: 4 sequences as 2 microbatches, so that the
+# gradients are float32 sums (a bf16 gradient is its own compression and
+# leaves the error tree at zero).
+TRAIN_COMPRESS_BATCH, TRAIN_COMPRESS_ACCUM = 4, 2
+# The flash backward at one (1, 4,096, 12, 64) float32 sequence against
+# autograd of the naive attention: elementwise atol + rtol * |naive| (sums
+# of 4,096 terms in other orders; tests/test_torch_gpu.py's bound).
+FLASH_CHECK_RTOL, FLASH_CHECK_ATOL = 1e-3, 1e-4
+# NVIDIA's H100 SXM data sheet: dense bf16 tensor-core peak, at 700 W.
+H100_BF16_PEAK_FLOPS = 989e12
+
+
+def train_flops(cfg, batch, seq):
+    """Model FLOPs of one train step, from the config: 6 N per token for
+    the weights (forward 2, backward 4) and the causal attention's two
+    products, S (S + 1) / 2 query-key pairs a sequence (forward once,
+    backward twice); with remat also one more forward of every layer and
+    of the loss's logits (8 N per token, the attention 4 times)."""
+    n = cfg.param_count()
+    tokens = batch * seq
+    attn_fwd = cfg.n_layers * batch * 4 * cfg.n_heads * cfg.head_dim_ * seq * (seq + 1) // 2
+    return {"params": n, "tokens": tokens, "attention_forward": attn_fwd,
+            "model": 6 * n * tokens + 3 * attn_fwd,
+            "with_remat": 8 * n * tokens + 4 * attn_fwd}
+
+
+def trees_identical(a, b):
+    import torch
+    from repro_torch.tree import tree_flatten
+
+    (la, da), (lb, db) = tree_flatten(a), tree_flatten(b)
+    return da == db and all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+                            for x, y in zip(la, lb))
+
+
+def flash_backward_check(dev, seed):
+    """The flash backward on the card against autograd of the naive
+    attention at one (1, 4,096, 12, 64) float32 sequence."""
+    import torch
+    from repro_torch.models.attention import flash_attention, naive_attention
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (1, TRAIN_SEQ, 12, 64)
+    q, k, v, w = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+
+    def run(fn):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs, causal=True)
+        (out * w).sum().backward()
+        return [out.detach()] + [x.grad for x in xs]
+
+    got, want = run(flash_attention), run(naive_attention)
+    errs, ok = [], True
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        errs.append(float(d.max()))
+        ok &= bool((d <= FLASH_CHECK_ATOL + FLASH_CHECK_RTOL * b.abs()).all())
+    row = {"shape": list(shape), "dtype": "float32", "max_abs_err": dict(zip(
+        ("out", "dq", "dk", "dv"), errs)), "rtol": FLASH_CHECK_RTOL, "atol": FLASH_CHECK_ATOL,
+        "flash_fwd_bwd_ms": cuda_ms(lambda: run(flash_attention)),
+        "naive_fwd_bwd_ms": cuda_ms(lambda: run(naive_attention))}
+    check(ok, f"flash backward on the card differs from naive autograd: {row}")
+    return row
+
+
+def profiled_breakdown(fn, top=12):
+    """fn() once under a torch.profiler window (CUDA activity only).
+    Returns (fn's result, device ms of every event, the number of events,
+    the ``top`` kernel names by device ms as [name, ms, count])."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by_name, total, n = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            ms_n = by_name.setdefault(e.name[:120], [0.0, 0])
+            ms_n[0] += us / 1e3
+            ms_n[1] += 1
+            total += us / 1e3
+            n += 1
+    ranked = sorted(([k, v[0], v[1]] for k, v in by_name.items()), key=lambda r: -r[1])
+    return out, total, n, ranked[:top]
+
+
+def run_lm_train(seed, dev, tok):
+    """Path 8: llcysa-analytics-100m at full width in bf16 (seeded init,
+    float32 Adam state) trained for 20 steps through build_train_step with
+    remat at S = 4,096 on path 6's token sequences; a CheckpointManager
+    save after step 10, restored and resumed for two steps that must equal
+    steps 11-12 bit for bit; two compress_grads steps; the flash backward
+    against naive autograd."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.llcysa import CONFIG as cfg
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import OptConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+
+    report = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                         "dtype": cfg.dtype, "params": cfg.param_count()},
+              "shape": {"seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+                        "accum_steps": TRAIN_ACCUM, "steps": TRAIN_STEPS, "remat": True}}
+    t0 = time.perf_counter()
+    seqs = tok.sequences(0, T_SPAN, seq_len=TRAIN_SEQ + 1, batch=TRAIN_BATCH)
+    batches = [torch.from_numpy(next(seqs)).to(dev) for _ in range(TRAIN_STEPS)]
+    check(all(b.shape == (TRAIN_BATCH, TRAIN_SEQ + 1) and int(b.min()) >= 0
+              and int(b.max()) < cfg.vocab_size for b in batches),
+          "path 8's token batches are out of shape or range")
+    report["data"] = {"seconds": time.perf_counter() - t0, "batches": len(batches),
+                      "tokens": TRAIN_STEPS * TRAIN_BATCH * (TRAIN_SEQ + 1)}
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    report["flops_per_step"] = flops
+
+    ckpt_dir = os.path.join(ROOT, "build", "train_ckpt")  # gitignored
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step = build_train_step(cfg, shape, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM,
+                            device=dev)
+    base_alloc = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    state = adamw_init(params, opt_cfg)
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+
+    def batch_of(i):
+        return {"inputs": batches[i][:, :-1], "targets": batches[i][:, 1:]}
+
+    # Bitwise resume needs deterministic kernels (the embedding's backward
+    # accumulates with atomics otherwise); chip_smoke sets
+    # CUBLAS_WORKSPACE_CONFIG before CUDA starts.
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses, grad_norms, step_s, kept = [], [], [], {}
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if i == TRAIN_PROFILED_STEP:
+                (params, state, m), device_ms, profiled, top_kernels = profiled_breakdown(
+                    lambda: step(params, state, batch_of(i)))
+            else:
+                params, state, m = step(params, state, batch_of(i))
+                torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            grad_norms.append(float(m["grad_norm"]))
+            if i + 1 == TRAIN_CKPT_STEP:
+                report["peak_allocated_bytes_steps_1_10"] = torch.cuda.max_memory_allocated(dev)
+                mgr.save(TRAIN_CKPT_STEP, {"params": params, "opt_state": state})
+                kept[TRAIN_CKPT_STEP] = (params, state)
+            if i + 1 == TRAIN_CKPT_STEP + 2:
+                kept[TRAIN_CKPT_STEP + 2] = (params, state, losses[-2:])
+        mgr.wait()
+        timed = [s for i, s in enumerate(step_s) if i not in (0, TRAIN_PROFILED_STEP)]
+        step_ms = 1e3 * float(np.median(timed))
+        report["train"] = {
+            "losses": losses, "grad_norms": grad_norms, "step_s": step_s,
+            "step_ms_median": step_ms, "step_ms_first": 1e3 * step_s[0],
+            "tokens_per_s": flops["tokens"] / (step_ms / 1e3),
+            "device_ms_one_step": device_ms, "profiled_device_events": profiled,
+            "top_kernels_one_step": top_kernels,
+            "device_busy_share": device_ms / step_ms,
+            "model_tflops_per_s": flops["model"] / (step_ms / 1e3) / 1e12,
+            "model_share_of_bf16_peak": flops["model"] / (step_ms / 1e3) / H100_BF16_PEAK_FLOPS,
+            "with_remat_share_of_bf16_peak":
+                flops["with_remat"] / (step_ms / 1e3) / H100_BF16_PEAK_FLOPS,
+            "peak_source": "NVIDIA H100 SXM data sheet, 989 TFLOP/s dense bf16 at 700 W",
+            "allocated_before_bytes": base_alloc,
+            "peak_allocated_bytes_steps_1_10": report.pop("peak_allocated_bytes_steps_1_10"),
+        }
+        log("train", json.dumps({k: v for k, v in report["train"].items()
+                                 if k not in ("losses", "grad_norms", "step_s",
+                                              "top_kernels_one_step")}))
+        for row in top_kernels:
+            log("train", "[kernel time, one step] " + json.dumps(row))
+        log("train", "loss per step " + json.dumps(losses))
+        check(all(np.isfinite(losses)), f"path 8 losses not finite: {losses}")
+        check(losses[-1] < 0.9 * losses[0], f"path 8's loss fell from {losses[0]} to only "
+              f"{losses[-1]} (must end below 0.9 x the first)")
+
+        # Resume: the step-10 checkpoint restores on the card bit for bit,
+        # and two steps from it equal the uninterrupted steps 11-12.
+        p10, s10 = kept[TRAIN_CKPT_STEP]
+        restored_step, restored = mgr.restore_latest({"params": params, "opt_state": state})
+        check(restored_step == TRAIN_CKPT_STEP and trees_identical(
+            restored, {"params": p10, "opt_state": s10}) and all(
+            x.device == dev for x in tree_leaves(restored)),
+            "the step-10 checkpoint did not restore bit for bit on the card")
+        p, s = restored["params"], restored["opt_state"]
+        resumed = []
+        for i in (TRAIN_CKPT_STEP, TRAIN_CKPT_STEP + 1):
+            p, s, m = step(p, s, batch_of(i))
+            resumed.append(float(m["loss"]))
+        p12, s12, l12 = kept[TRAIN_CKPT_STEP + 2]
+        same = trees_identical(p, p12) and trees_identical(s, s12) and resumed == l12
+        report["resume"] = {"from_step": restored_step, "losses": resumed, "uninterrupted": l12,
+                            "bitwise_equal": same}
+        check(same, f"two steps resumed from step 10 differ from steps 11-12: {resumed} "
+              f"against {l12}")
+        log("train", f"resumed from the step-{restored_step} checkpoint: steps 11-12 equal "
+            f"the uninterrupted run bit for bit (params, optimizer state, losses {resumed})")
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del kept, p, s, p10, s10, p12, s12, restored
+
+    # Two steps with error-feedback bf16 compression.
+    c_cfg = OptConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS, compress_grads=True)
+    c_step = build_train_step(cfg, ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_COMPRESS_BATCH,
+                                               "train"), c_cfg,
+                              accum_steps=TRAIN_COMPRESS_ACCUM, device=dev)
+    c_state = adamw_init(params, c_cfg)
+    c_losses = []
+    for i in range(2):
+        b = batches[i][:TRAIN_COMPRESS_BATCH]
+        params, c_state, m = c_step(params, c_state, {"inputs": b[:, :-1], "targets": b[:, 1:]})
+        c_losses.append(float(m["loss"]))
+    err_max = max(float(e.abs().max()) for e in tree_leaves(c_state["err"]))
+    report["compress_grads"] = {"losses": c_losses, "err_max_abs": err_max}
+    check(all(np.isfinite(c_losses)) and err_max > 0,
+          f"compress_grads steps: losses {c_losses}, err tree max {err_max}")
+    log("train", "two compress_grads steps: " + json.dumps(report["compress_grads"]))
+    del params, state, c_state, batches
+
+    report["flash_backward"] = flash_backward_check(dev, seed)
+    log("train", "flash backward vs naive autograd on the card: "
+        + json.dumps(report["flash_backward"]))
+    return report
+
+
 def host_major_inputs(store, seed):
     """merge_runs' inputs at the host store's major shape, from index
     tablet 0 of a path-6 store: a first major's K = max_runs + 1 runs of
@@ -2461,8 +2738,16 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None):
     report["lm"] = run_lm_serve(seed, dev, tok, prompts)
     launches_7 = read_launches()
     log("launches", "path 7 (LM serve; no kernel of its own): " + json.dumps(launches_7))
+    # Path 8: the analytics LM trained on path 6's token sequences.
+    zero_launches()
+    t0 = time.perf_counter()
+    report["lm_train"] = run_lm_train(seed, dev, tok)
+    report["lm_train"]["path_seconds"] = time.perf_counter() - t0
+    launches_8 = read_launches()
+    log("launches", "path 8 (LM train; no kernel of its own): " + json.dumps(launches_8))
     del p_store, tok
-    paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7)
+    paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7,
+             launches_8)
     launches = {k: sum(p[k] for p in paths) for k in launches_1}
     report["launches"] = {"total": launches,
                           **{f"path_{i}": p for i, p in enumerate(paths, start=1)}}
@@ -2675,6 +2960,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args(argv)
+    # Path 8's bitwise resume runs under torch.use_deterministic_algorithms,
+    # whose cuBLAS calls need this set before CUDA starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 

@@ -1,1 +1,1 @@
-from .base import ModelConfig  # noqa: F401
+from .base import SHAPES, ModelConfig, ShapeConfig  # noqa: F401

@@ -1,5 +1,5 @@
-"""Model configuration dataclass; a copy of the reference's
-configs/base.py cut to ModelConfig.
+"""Model and run configuration dataclasses; a copy of the reference's
+configs/base.py (ModelConfig, ShapeConfig and the SHAPES cells).
 
 One `ModelConfig` instance per architecture lives in
 `repro_torch/configs/<id>.py` with the published dimensions, plus a
@@ -158,3 +158,21 @@ class ModelConfig:
             sum(1 for k in self.layer_pattern if k in ("global", "local")) * self.n_groups
         )
         return full - inactive_per_moe_layer * n_moe_layers
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -8,13 +8,15 @@ Parameters keep the reference's tree: {"embed", ["lm_head"],
 "final_norm", "groups": (layer dict,)}, each layer leaf stacked over the
 layers on a leading axis, so models/carry.py maps the reference's tree
 one to one. The reference scans over that axis; here a Python loop walks
-it (no remat: this slice has no backward pass).
+the layers, each taking its slice of every stacked leaf (a view, so the
+gradients land in the stacked leaf).
 
-Entry points, all without autograd:
-  forward_train   causal forward + chunked cross-entropy (the forward
-                  only; it scores traffic windows)
-  prefill         forward returning per-layer KV caches
-  decode_step     one token against the caches, written in place
+Entry points:
+  forward_train   causal forward + chunked cross-entropy, differentiable
+                  (remat: one activation checkpoint per layer)
+  prefill         forward returning per-layer KV caches (no autograd)
+  decode_step     one token against the caches, written in place (no
+                  autograd)
 
 Caches mirror the reference's: a tuple per layer-pattern position of
 {"k", "v"} tensors (n_layers, B, L, n_kv, head_dim). The port has one
@@ -22,11 +24,13 @@ GPU and no mesh, so the reference's sharding constraints are gone.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
@@ -139,19 +143,49 @@ def _mlp_block(p: Dict, h, cfg: ModelConfig):
     return mlp_glu(x, p["wi_gate"], p["wi_up"], p["wo_mlp"], cfg.act)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _layer(p: Dict, h, cfg: ModelConfig, **attn_kw):
+    """One layer: attention then MLP, each added to the residual stream.
+    Returns (h, the layer's new cache)."""
+    attn_out, new_cache = _attn_block(p, h, cfg, **attn_kw)
+    h = h + attn_out
+    return h + _mlp_block(p, h, cfg), new_cache
+
+
+def _train_layer(h, positions, *leaves, names, cfg: ModelConfig):
+    return _layer(dict(zip(names, leaves)), h, cfg, mode="train", positions=positions,
+                  cache=None, cur_pos=None, cache_len=h.shape[1])[0]
+
+
 def _stack(params: PyTree, cfg: ModelConfig, h, *, mode: str, positions, caches, cur_pos,
-           cache_len: int):
+           cache_len: int, remat: bool = False):
     """Every layer in order. Returns (h, caches): prefill builds them,
-    decode writes into the ones given, train returns None."""
+    decode writes into the ones given, train returns None.
+
+    Training with remat runs each layer under an activation checkpoint,
+    so the backward keeps only the residual stream entering each layer and
+    recomputes the layer's inside. The reference checkpoints its scan body
+    and nests the scan two levels deep (sqrt-L), a memory layout of XLA's
+    with the same values; one checkpoint per layer is its counterpart."""
     layers = params["groups"][0]
+    names = tuple(layers)
+    per_layer = list(zip(*(layers[k].unbind(0) for k in names)))
     new = []
-    for i in range(cfg.n_groups):
-        p = {k: v[i] for k, v in layers.items()}
+    for i, leaves in enumerate(per_layer):
+        if mode == "train":
+            fn = functools.partial(_train_layer, names=names, cfg=cfg)
+            if remat and _needs_grad(h, *leaves):
+                h = checkpoint(fn, h, positions, *leaves, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                h = fn(h, positions, *leaves)
+            continue
         cache = None if caches is None else {k: v[i] for k, v in caches[0].items()}
-        attn_out, nc = _attn_block(p, h, cfg, mode=mode, positions=positions, cache=cache,
-                                   cur_pos=cur_pos, cache_len=cache_len)
-        h = h + attn_out
-        h = h + _mlp_block(p, h, cfg)
+        h, nc = _layer(dict(zip(names, leaves)), h, cfg, mode=mode, positions=positions,
+                       cache=cache, cur_pos=cur_pos, cache_len=cache_len)
         new.append(nc)
     if mode == "prefill":
         caches = ({"k": torch.stack([c["k"] for c in new]),
@@ -165,24 +199,37 @@ def _logits(params, cfg: ModelConfig, h):
     return softcap(unembed(h, table, cfg.tie_embeddings).float(), cfg.final_softcap)
 
 
+def _xent_chunk(hh, tt, table, *, cfg: ModelConfig):
+    """Summed NLL and counted targets of one sequence chunk."""
+    logits = softcap(unembed(hh, table, cfg.tie_embeddings).float(), cfg.final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = tt.clamp(0, cfg.vocab_size - 1).long()
+    picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    mask = (tt >= 0).float()
+    return ((lse - picked) * mask).sum(), mask.sum()
+
+
 def chunked_xent(params, cfg: ModelConfig, h, targets, chunk: int = 512):
     """Mean cross-entropy over targets >= 0 without holding (B, S, V)
-    float32 logits: the sequence is taken ``chunk`` positions at a time.
-    Returns (mean loss, counted targets)."""
+    float32 logits: the sequence is taken ``chunk`` positions at a time,
+    and under autograd each chunk's logits are recomputed in the backward
+    (an activation checkpoint per chunk, as the reference's
+    jax.checkpoint on its chunk body). Returns (mean loss, counted
+    targets)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    body = functools.partial(_xent_chunk, cfg=cfg)
+    remat = _needs_grad(h, table)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, h.shape[1], chunk):
-        logits = unembed(h[:, c0: c0 + chunk], table, cfg.tie_embeddings).float()
-        logits = softcap(logits, cfg.final_softcap)
-        tt = targets[:, c0: c0 + chunk]
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = tt.clamp(0, cfg.vocab_size - 1).long()
-        picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
-        mask = (tt >= 0).float()
-        tot = tot + ((lse - picked) * mask).sum()
-        cnt = cnt + mask.sum()
+        args = (h[:, c0: c0 + chunk], targets[:, c0: c0 + chunk], table)
+        if remat:
+            nll, n = checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            nll, n = body(*args)
+        tot = tot + nll
+        cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0), cnt
 
 
@@ -190,15 +237,17 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
 
 
-@torch.no_grad()
-def forward_train(params, cfg: ModelConfig, batch: Dict, loss_chunk: int = 512):
-    """The training forward, without its backward: batch {'inputs' (B, S),
-    'targets' (B, S)} int. Returns (loss, metrics) as the reference does
-    (the dense stack has no auxiliary loss)."""
+def forward_train(params, cfg: ModelConfig, batch: Dict, remat: bool = True,
+                  loss_chunk: int = 512):
+    """batch {'inputs' (B, S), 'targets' (B, S)} int. Returns (loss,
+    metrics) as the reference does (the dense stack has no auxiliary
+    loss). Differentiable in every parameter leaf; with ``remat`` each
+    layer is an activation checkpoint. Without autograd (no leaf requires
+    grad, or under torch.no_grad) it only scores."""
     h = embed(batch["inputs"], params["embed"], cfg.scale_embedding)
     b, s = h.shape[:2]
     h, _ = _stack(params, cfg, h, mode="train", positions=_positions(b, s, h.device),
-                  caches=None, cur_pos=None, cache_len=s)
+                  caches=None, cur_pos=None, cache_len=s, remat=remat)
     loss, n_tok = chunked_xent(params, cfg, h, batch["targets"], chunk=loss_chunk)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
@@ -257,7 +306,8 @@ def _leaves(tree: PyTree, prefix: str = ""):
 
 class Model(nn.Module):
     """The entry points bound to one parameter tree, whose leaves are the
-    module's buffers (so ``.to()`` moves them); inference only."""
+    module's buffers (so ``.to()`` moves them). ``loss`` is differentiable
+    in the buffers that require grad."""
 
     def __init__(self, cfg: ModelConfig, params: PyTree):
         super().__init__()
@@ -282,6 +332,9 @@ class Model(nn.Module):
 
     def forward(self, batch: Dict):
         return forward_train(self.params, self.cfg, batch)
+
+    def loss(self, batch: Dict, remat: bool = True):
+        return forward_train(self.params, self.cfg, batch, remat=remat)
 
     def prefill(self, batch: Dict, cache_len: Optional[int] = None):
         return prefill(self.params, self.cfg, batch, cache_len)

@@ -41,6 +41,14 @@ from repro_torch.kernels.combine_scan import ops as combine_ops
 from repro_torch.kernels.filter_scan import program_tensors
 from repro_torch.kernels.merge_intersect import intersect_sorted
 
+from repro_torch.checkpointing import CheckpointManager, restore_checkpoint, save_checkpoint
+from repro_torch.configs import ShapeConfig, llcysa
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models.attention import flash_attention, naive_attention
+from repro_torch.models.model import init_params
+from repro_torch.training.optimizer import OptConfig, adamw_init
+from repro_torch.tree import tree_leaves, tree_map
+
 pytestmark = pytest.mark.gpu
 
 
@@ -870,3 +878,78 @@ def test_host_store_on_the_card_matches_the_cpu_store(cuda, tmp_path):
     assert all(len(t.runs) == 1 for t in tablets(card4))
     assert merge_ops.launches == sum(t.major_compactions for t in tablets(card4)) - majors
     assert sum(t.n_rows for t in card4.event_tablets) == 24_000
+
+
+# The flash backward on the card against autograd of the naive attention on
+# the same inputs: float32 elementwise within atol 1e-4 + rtol 1e-3 (sums of
+# up to 700 terms in other orders); bfloat16 (inputs, output and gradients
+# rounded to bf16, float32 inside both) within 2% of the tensor's largest
+# magnitude, about four times what the same comparison gives on the CPU.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=100, softcap_val=30.0),
+                                dict(causal=False)])
+def test_flash_backward_on_the_card_matches_naive_autograd(cuda, dtype, kw):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, w = (torch.randn(shape, generator=g, device=cuda).to(dtype) for shape in
+                  ((2, 700, 8, 64), (2, 700, 4, 64), (2, 700, 4, 64), (2, 700, 8, 64)))
+
+    def run(fn, **kw2):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs, **kw, **kw2)
+        (out.float() * w.float()).sum().backward()
+        return [out.detach()] + [x.grad for x in xs]
+
+    for got, want in zip(run(flash_attention, q_chunk=256, kv_block=128), run(naive_attention)):
+        assert got.dtype == want.dtype == dtype and got.device == cuda
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+        else:
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= 2e-2 * float(want.float().abs().max()), err
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One build_train_step step of llcysa.smoke() in float32 (no TF32): the
+    loss, grad_norm and lr within rtol 1e-5, the parameters within atol
+    1e-4 and Adam's moments within 1e-4 of each leaf's largest (the CPU
+    parity tests' tolerances)."""
+    cfg = llcysa.smoke().replace(dtype="float32")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=0)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 129))
+                            .astype(np.int32))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda x: x.to(dev), cpu_params)
+        step = build_train_step(cfg, ShapeConfig("t", 128, 4, "train"), opt_cfg, loss_chunk=64,
+                                accum_steps=2, device=dev)
+        out[str(dev)] = step(params, adamw_init(params, opt_cfg), batch)
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out[str(cuda)]
+    for key in ("loss", "grad_norm", "lr", "total_loss"):
+        np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-5)
+    for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+        assert a.device == cuda and a.dtype == b.dtype
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    for key in ("m", "v"):
+        for a, b in zip(tree_leaves(sg[key]), tree_leaves(sc[key])):
+            assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert sg["step"].dtype == torch.int32 and int(sg["step"]) == 1
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    t = {"a": torch.randn((3, 5), device=cuda),
+         "b": (torch.randn(7, device=cuda).bfloat16(), torch.tensor(4, dtype=torch.int32,
+                                                                    device=cuda))}
+    save_checkpoint(tmp_path / "direct", 3, t)
+    mgr = CheckpointManager(tmp_path / "mgr", keep=2)
+    want = tree_map(torch.clone, t)
+    mgr.save(5, t)
+    t["a"].add_(1.0)  # save copied to the host before it returned
+    mgr.wait()
+    like = tree_map(torch.zeros_like, t)
+    for step, got in (restore_checkpoint(tmp_path / "direct", like),
+                      mgr.restore_latest(like)):
+        assert step in (3, 5)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert a.device == cuda and a.dtype == b.dtype and torch.equal(a, b)
