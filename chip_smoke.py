@@ -21,7 +21,7 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  eight paths at full size, each with every kernel launch count
+  main path  nine paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -185,6 +185,34 @@ no result line):
                 (1, 4,096, 12, 64) float32 sequence agrees with autograd
                 of the naive attention within atol 1e-4 + rtol 1e-3. It
                 has no kernel of its own either.
+             9. the LM's attention-side families. 9a: gemma2-9b at full
+                width and depth (42 layers as 21 local/global pairs,
+                d_model 3,584, 16 heads over 8 KV heads of 256, d_ff
+                14,336, vocab 256,000, bf16, seeded init on a CUDA
+                generator) behind ServeEngine (max_batch 8, cache_len
+                256; after a 2-request warm-up) answering path 7's 32
+                requests with 16 new tokens each: every request finishes
+                with 16 tokens in range, and the weights count within 2%
+                of the config's; TTFT p50/p95, end-to-end p50, decode
+                tokens/s, one decode step of the 8 slots and one prefill
+                with dispatch and on the device, the decode step's device
+                time by kernel, and peak memory are reported. The model
+                is freed before 9b. 9b: for each of gemma2-9b, gemma3-12b,
+                internlm2-20b, qwen1.5-4b, musicgen-medium and
+                llama-3.2-vision-11b, one pattern period (at least two
+                layers: 2, 6, 2, 2, 2 and 5) at full width in float32 from
+                a seeded init (the cross gates set to 0.5, so the cross
+                layer counts), a prompt prefilled once, then 16 decode
+                steps (greedy tokens; musicgen seeded frame embeddings;
+                llama-vision on seeded vision states of (1, 1,601, 4,096)),
+                each step's logits within 2e-3 of a prefill over the
+                inputs so far. gemma2's prompt of 4,160 tokens (cache_len
+                4,224) and gemma3's of 1,100 (cache_len 1,152) must wrap
+                their local rings (windows 4,096 and 1,024). 9c: gemma2's
+                local attention's flash backward at (1, 4,096, 16, 256)
+                float32, window 1,024, soft-cap 50, scale 1/16, against
+                autograd of the naive attention within atol 1e-4 + rtol
+                1e-3. No kernel of the port's own runs on path 9.
              Paths 1-3 also run the Cmp and Match filter nodes:
              domain = A AND bytes_out < 1000 on all four schemes and on
              path 3 with spec (a), Match(domain, "d0000") (the ten most
@@ -2105,24 +2133,20 @@ def run_pipeline(seed, dev, zero_launches, read_launches, files=PIPELINE_FILES,
     return report, store, tok, prompts, launches
 
 
-def run_lm_serve(seed, dev, tok, prompts):
-    """Path 7: llcysa-analytics-100m at full width in bf16 (seeded init)
-    behind ServeEngine; decode against prefill in float32 on the same
-    prompts; the per-window NLL scores of examples/cyber_pipeline.py step 5."""
+def serve_prompts(cfg, params, dev, prompts, base_alloc, tag):
+    """Path 7's traffic on ``params``: after a 2-request warm-up,
+    ServeEngine(max_batch LM_MAX_BATCH, cache_len LM_CACHE_LEN) answers
+    ``prompts`` with LM_NEW_TOKENS new tokens each, and every request must
+    finish with that many tokens in range. Then where a round's time goes:
+    one decode step of every slot and one prompt's prefill, with host
+    dispatch (cuda_ms) and on the device alone (every CUDA activity in a
+    profiler window). Returns (the serve report, the breakdown, the decode
+    step as a function of no arguments)."""
     import numpy as np
     import torch
-    from repro_torch.configs.llcysa import CONFIG as cfg
-    from repro_torch.models.model import (
-        cast_params, decode_step, forward_train, init_caches, init_params, prefill,
-    )
+    from repro_torch.models.model import decode_step, init_caches, prefill
     from repro_torch.serving import ServeEngine
 
-    report = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                         "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
-                         "dtype": cfg.dtype, "params": cfg.param_count()}}
-    base_alloc = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
     warm = ServeEngine(cfg, params, max_batch=2, cache_len=LM_CACHE_LEN, device=dev)
     for p in prompts[:2]:
         warm.submit(p, max_new_tokens=2)
@@ -2136,36 +2160,33 @@ def run_lm_serve(seed, dev, tok, prompts):
     done = eng.run()
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    check(len(done) == LM_REQUESTS, f"{len(done)} of {LM_REQUESTS} requests finished")
+    check(len(done) == len(prompts), f"{cfg.name}: {len(done)} of {len(prompts)} requests "
+          "finished")
     for r in done:
         check(len(r.output) == LM_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in r.output),
-              f"request {r.rid}: {len(r.output)} tokens, range {min(r.output)}..{max(r.output)}")
+              f"{cfg.name} request {r.rid}: {len(r.output)} tokens, range "
+              f"{min(r.output)}..{max(r.output)}")
     ttft = np.asarray(sorted(r.ttft for r in done))
     e2e = np.asarray(sorted(r.finished_at - r.submitted_at for r in done))
     rounds = eng.batcher.history
-    decode_tokens = sum(n for _, n in rounds)
-    report["serve"] = {
+    serve = {
         "requests": len(done), "prompt_tokens": int(prompts.shape[1]),
         "new_tokens": LM_NEW_TOKENS, "max_batch": LM_MAX_BATCH, "cache_len": LM_CACHE_LEN,
         "wall_s": wall, "rounds": len(rounds), "round_s_sum": sum(t for t, _ in rounds),
         "ttft_p50_s": float(np.percentile(ttft, 50)), "ttft_p95_s": float(np.percentile(ttft, 95)),
         "e2e_p50_s": float(np.percentile(e2e, 50)),
-        "decode_tokens_per_s": decode_tokens / wall,
+        "decode_tokens_per_s": sum(n for _, n in rounds) / wall,
         "final_k": eng.batcher.k,
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
         "allocated_before_bytes": base_alloc,
     }
-    log("lm", json.dumps(report["serve"]))
+    log(tag, f"{cfg.name} served: " + json.dumps(serve))
     del eng
 
-    # Where a round's time goes: one decode step of every slot and one
-    # prompt's prefill, with host dispatch (cuda_ms) and on the device
-    # alone (every CUDA activity in a profiler window).
     x = torch.from_numpy(prompts.astype(np.int64)).to(dev)
-    s = x.shape[1]
     slots = init_caches(params, cfg, LM_MAX_BATCH, LM_CACHE_LEN)
     tok1 = torch.zeros((LM_MAX_BATCH, 1), dtype=torch.int64, device=dev)
-    pos = torch.full((LM_MAX_BATCH,), s, dtype=torch.int32, device=dev)
+    pos = torch.full((LM_MAX_BATCH,), x.shape[1], dtype=torch.int32, device=dev)
 
     def step():
         return decode_step(params, cfg, {"inputs": tok1}, slots, pos)
@@ -2173,13 +2194,36 @@ def run_lm_serve(seed, dev, tok, prompts):
     def prefill_one():
         return prefill(params, cfg, {"inputs": x[:1]}, cache_len=LM_CACHE_LEN)
 
-    report["breakdown"] = {
+    breakdown = {
         "decode_step_ms": cuda_ms(step), "decode_step_device_ms": device_ms(step, ("",)),
         "prefill_ms": cuda_ms(prefill_one), "prefill_device_ms": device_ms(prefill_one, ("",)),
     }
-    log("lm", "one decode step of the 8 slots and one prompt's prefill: "
-        + json.dumps(report["breakdown"]))
-    del slots
+    log(tag, f"{cfg.name}: one decode step of the {LM_MAX_BATCH} slots and one prompt's "
+        "prefill: " + json.dumps(breakdown))
+    return serve, breakdown, step
+
+
+def run_lm_serve(seed, dev, tok, prompts):
+    """Path 7: llcysa-analytics-100m at full width in bf16 (seeded init)
+    behind ServeEngine; decode against prefill in float32 on the same
+    prompts; the per-window NLL scores of examples/cyber_pipeline.py step 5."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.llcysa import CONFIG as cfg
+    from repro_torch.models.model import (
+        cast_params, decode_step, forward_train, init_params, prefill,
+    )
+
+    report = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                         "dtype": cfg.dtype, "params": cfg.param_count()}}
+    base_alloc = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    report["serve"], report["breakdown"], _ = serve_prompts(cfg, params, dev, prompts,
+                                                            base_alloc, "lm")
+    x = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    s = x.shape[1]
 
     # Decode against prefill in float32: the prompts prefilled once, then
     # LM_NEW_TOKENS greedy decode steps, each step's logits held to a
@@ -2260,19 +2304,19 @@ def trees_identical(a, b):
                             for x, y in zip(la, lb))
 
 
-def flash_backward_check(dev, seed):
+def flash_backward_check(dev, seed, shape=(1, TRAIN_SEQ, 12, 64), **kw):
     """The flash backward on the card against autograd of the naive
-    attention at one (1, 4,096, 12, 64) float32 sequence."""
+    attention at one float32 sequence of ``shape`` (B, S, H, D), causal,
+    with the attention options ``kw`` (window, softcap_val, scale)."""
     import torch
     from repro_torch.models.attention import flash_attention, naive_attention
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    shape = (1, TRAIN_SEQ, 12, 64)
     q, k, v, w = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
 
     def run(fn):
         xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out = fn(*xs, causal=True)
+        out = fn(*xs, causal=True, **kw)
         (out * w).sum().backward()
         return [out.detach()] + [x.grad for x in xs]
 
@@ -2282,7 +2326,7 @@ def flash_backward_check(dev, seed):
         d = (a - b).abs()
         errs.append(float(d.max()))
         ok &= bool((d <= FLASH_CHECK_ATOL + FLASH_CHECK_RTOL * b.abs()).all())
-    row = {"shape": list(shape), "dtype": "float32", "max_abs_err": dict(zip(
+    row = {"shape": list(shape), "dtype": "float32", **kw, "max_abs_err": dict(zip(
         ("out", "dq", "dk", "dv"), errs)), "rtol": FLASH_CHECK_RTOL, "atol": FLASH_CHECK_ATOL,
         "flash_fwd_bwd_ms": cuda_ms(lambda: run(flash_attention)),
         "naive_fwd_bwd_ms": cuda_ms(lambda: run(naive_attention))}
@@ -2463,6 +2507,140 @@ def run_lm_train(seed, dev, tok):
 
     report["flash_backward"] = flash_backward_check(dev, seed)
     log("train", "flash backward vs naive autograd on the card: "
+        + json.dumps(report["flash_backward"]))
+    return report
+
+
+# Path 9: the attention-side families. 9a serves gemma2-9b at full width
+# and depth with path 7's traffic; 9b holds float32 decode against prefill
+# for one pattern period (two layers where the period is one) of each of
+# the six configs at full width, the local configs' prompts past their
+# window; 9c runs gemma2's local attention's flash backward at train_4k's
+# length.
+FAMILY_SERVE_ARCH = "gemma2-9b"
+FAMILY_DECODE = {  # arch: (prompt length, cache_len), batch 1
+    "gemma2-9b": (4160, 4224),  # window 4,096: the ring wraps at prefill
+    "gemma3-12b": (1100, 1152),  # window 1,024
+    "internlm2-20b": (112, 128),
+    "qwen1.5-4b": (112, 128),
+    "musicgen-medium": (112, 128),  # seeded frame embeddings, not tokens
+    "llama-3.2-vision-11b": (112, 128),  # with seeded vision states (1, 1,601, 4,096)
+}
+FAMILY_DECODE_STEPS = 16
+FAMILY_CROSS_GATE = 0.5  # the cross gates init at 0 (tanh 0: the layer adds nothing)
+FAMILY_FLASH_SHAPE = (1, TRAIN_SEQ, 16, 256)
+FAMILY_FLASH_KW = dict(window=1024, softcap_val=50.0, scale=1.0 / 16.0)  # gemma2's local layer
+
+
+def run_family_serve(seed, dev, prompts):
+    """Path 9a: gemma2-9b at full width and depth in bf16 (seeded init on
+    a CUDA generator) behind ServeEngine, path 7's traffic and breakdown,
+    and the decode step's device time by kernel."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(FAMILY_SERVE_ARCH)
+    report = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                         "layer_pattern": list(cfg.layer_pattern), "d_model": cfg.d_model,
+                         "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                         "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                         "window": cfg.window, "dtype": cfg.dtype,
+                         "params": cfg.param_count()}}
+    base_alloc = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize(dev)
+    report["init_s"] = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(abs(n_params - cfg.param_count()) / n_params < 0.02,
+          f"{cfg.name}: {n_params} parameters, the config counts {cfg.param_count()}")
+    report["config"]["params_allocated"] = n_params
+    report["weights_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    report["serve"], report["breakdown"], step = serve_prompts(cfg, params, dev, prompts,
+                                                               base_alloc, "family")
+    report["breakdown"]["weights_read_bound_ms"] = (1e3 * report["weights_bytes"]
+                                                    / HBM_BYTES_PER_S)
+    _, _, _, report["top_kernels_decode_step"] = profiled_breakdown(step)
+    for row in report["top_kernels_decode_step"]:
+        log("family", "[kernel time, one decode step] " + json.dumps(row))
+    del step, params
+    return report
+
+
+def family_decode_check(seed, dev, arch):
+    """Path 9b for one config: one pattern period (at least two layers) at
+    full width in float32 from a seeded init; a prompt prefilled once, then
+    FAMILY_DECODE_STEPS decode steps (greedy tokens; musicgen the next
+    seeded frame embeddings), each step's logits held to a prefill over the
+    prompt plus the inputs seen so far."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    full = get_config(arch)
+    cfg = full.replace(n_layers=max(len(full.layer_pattern), 2), dtype="float32")
+    s, cache_len = FAMILY_DECODE[arch]
+    steps = FAMILY_DECODE_STEPS
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, g, device=dev)
+    for layer in params["groups"]:
+        for name in ("gate_attn", "gate_mlp"):
+            if name in layer:
+                layer[name].fill_(FAMILY_CROSS_GATE)
+    extra = {}
+    if "cross" in cfg.layer_pattern:
+        extra["vision_states"] = torch.randn((1, cfg.n_image_tokens, cfg.d_model), generator=g,
+                                             device=dev)
+    if cfg.embed_input:
+        seq = torch.randint(0, cfg.vocab_size, (1, s), generator=g, device=dev)
+    else:
+        seq = torch.randn((1, s + steps, cfg.d_model), generator=g, device=dev)
+    key = "inputs" if cfg.embed_input else "embeds"
+    logits, caches, _ = prefill(params, cfg, {key: seq[:, :s], **extra}, cache_len=cache_len)
+    slots = {kind: c["k"].shape[2] for kind, c in zip(cfg.layer_pattern, caches)}
+    errs = []
+    for j in range(steps):
+        if cfg.embed_input:
+            seq = torch.cat([seq, torch.argmax(logits, dim=-1)[:, None]], dim=1)
+        t = s + j
+        ld, caches = decode_step(params, cfg, {key: seq[:, t:t + 1]}, caches,
+                                 torch.full((1,), t, device=dev))
+        lf, _, _ = prefill(params, cfg, {key: seq[:, :t + 1], **extra})
+        errs.append(float((ld - lf).abs().max()))
+        logits = ld
+    torch.cuda.synchronize(dev)
+    row = {"arch": arch, "n_layers": cfg.n_layers, "layer_pattern": list(cfg.layer_pattern),
+           "d_model": cfg.d_model, "params": cfg.param_count(), "prompt": s,
+           "cache_len": cache_len, "cache_slots": slots, "steps": steps,
+           "ring_wrapped": "local" in slots and s > slots["local"],
+           "max_abs_err": max(errs), "per_step": errs, "atol": LM_DECODE_ATOL,
+           "seconds": time.perf_counter() - t0}
+    del params, caches
+    check(max(errs) < LM_DECODE_ATOL, f"path 9b {arch}: float32 decode differs from prefill "
+          f"by {max(errs)}")
+    check("local" not in slots or row["ring_wrapped"],
+          f"path 9b {arch}: the prompt of {s} did not wrap the ring of {slots}")
+    return row
+
+
+def run_families(seed, dev, prompts):
+    """Path 9: 9a gemma2-9b served, 9b decode against prefill for every
+    config of the family, 9c the windowed, capped flash backward."""
+    report = {"serve": run_family_serve(seed, dev, prompts), "decode_vs_prefill": []}
+    for arch in FAMILY_DECODE:
+        row = family_decode_check(seed, dev, arch)
+        report["decode_vs_prefill"].append(row)
+        log("family", "float32 decode vs prefill: " + json.dumps(
+            {k: v for k, v in row.items() if k != "per_step"}))
+    report["flash_backward"] = flash_backward_check(dev, seed, FAMILY_FLASH_SHAPE,
+                                                    **FAMILY_FLASH_KW)
+    log("family", "windowed, capped flash backward vs naive autograd on the card: "
         + json.dumps(report["flash_backward"]))
     return report
 
@@ -2746,8 +2924,17 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None):
     launches_8 = read_launches()
     log("launches", "path 8 (LM train; no kernel of its own): " + json.dumps(launches_8))
     del p_store, tok
+    # Path 9: the LM's attention-side families; gemma2-9b served on path 6's
+    # token sequences.
+    zero_launches()
+    t0 = time.perf_counter()
+    report["families"] = run_families(seed, dev, prompts)
+    report["families"]["path_seconds"] = time.perf_counter() - t0
+    launches_9 = read_launches()
+    log("launches", "path 9 (LM families; no kernel of their own): " + json.dumps(launches_9))
+    del prompts
     paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7,
-             launches_8)
+             launches_8, launches_9)
     launches = {k: sum(p[k] for p in paths) for k in launches_1}
     report["launches"] = {"total": launches,
                           **{f"path_{i}": p for i, p in enumerate(paths, start=1)}}

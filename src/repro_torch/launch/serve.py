@@ -6,8 +6,10 @@ port of the reference's launch/serve.py.
         [--cache-len 256] [--max-new-tokens 16]
 
 As in the reference, --smoke is on by default (the config's smoke()
-reduction); the weights are seeded random. --device defaults to cuda and
-raises without CUDA.
+reduction); the weights are seeded random. --arch takes any registered
+config whose inputs are tokens alone (ServeEngine refuses musicgen-medium
+and llama-3.2-vision-11b), for example --arch gemma2-9b. --device
+defaults to cuda and raises without CUDA.
 """
 from __future__ import annotations
 

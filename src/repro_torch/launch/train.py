@@ -9,9 +9,12 @@ It runs build_train_step's step over the store-fed data pipeline: a
 SyntheticWebProxySource stages 4 files of 4,000 lines, an
 IngestWorkerPool of 2 workers ingests them into an EventStore on the
 device, and the EventTokenizer turns the stored events into token
-sequences. --device replaces the reference's --mesh (one device, no
-mesh) and defaults to cuda, raising without CUDA; --smoke takes the
-config's smoke() reduction (sequence 256, batch 4 unless given).
+sequences, so --arch takes the configs with token inputs alone (every
+registered one but musicgen-medium and llama-3.2-vision-11b; the
+reference's launcher fails on those two), for example --arch gemma2-9b
+--smoke. --device replaces the reference's --mesh (one device, no mesh)
+and defaults to cuda, raising without CUDA; --smoke takes the config's
+smoke() reduction (sequence 256, batch 4 unless given).
 
 Fault tolerance in the loop, as in the reference:
   * async checkpoints every --ckpt-every steps, keep-3, atomic renames;
@@ -56,6 +59,9 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if not cfg.embed_input or "cross" in cfg.layer_pattern:
+        ap.error(f"{cfg.name} also takes frame embeddings or vision states; the launcher "
+                 "feeds token sequences alone")
     base = SHAPES[args.shape]
     shape = ShapeConfig(base.name, args.seq or (256 if args.smoke else base.seq_len),
                         args.global_batch or (4 if args.smoke else base.global_batch), "train")

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from .model import FLOAT32_LEAVES
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -23,15 +24,18 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 
 def params_from_reference(tree: Any, device="cuda", dtype=None) -> Any:
     """Map the reference's parameter tree (dicts and tuples of numpy
-    arrays) leaf for leaf onto tensors on ``device`` (cast to ``dtype``
-    when given). The structure is the reference's, which is the port's."""
+    arrays) leaf for leaf onto tensors on ``device``, cast to ``dtype``
+    when given, but the leaves the reference keeps in float32
+    (``model.FLOAT32_LEAVES``, the cross-attention gates), which keep
+    their own dtype. The structure is the reference's, which is the
+    port's."""
     dev = resolve_device(device)
 
-    def walk(node):
+    def walk(node, key=None):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(walk(v) for v in node)
-        return _tensor(node, dev, dtype)
+        return _tensor(node, dev, None if key in FLOAT32_LEAVES else dtype)
 
     return walk(tree)

@@ -1,5 +1,6 @@
-"""Shared layer primitives: RMSNorm, RoPE, the GLU MLP, embeddings,
-soft-capping; the PyTorch port of the reference's models/layers.py.
+"""Shared layer primitives: RMSNorm, RoPE, the GLU and plain MLPs,
+embeddings, soft-capping; the PyTorch port of the reference's
+models/layers.py.
 
 Reductions that are sensitive to precision run in float32; weights and
 activations stay in the config's dtype (bfloat16 by default).
@@ -58,6 +59,11 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 def mlp_glu(x, wi_gate, wi_up, wo, act: str):
     """SwiGLU / GeGLU: (act(x @ gate) * (x @ up)) @ wo."""
     return (activation(x @ wi_gate, act) * (x @ wi_up)) @ wo
+
+
+def mlp_plain(x, wi, wo, act: str):
+    """The plain MLP: act(x @ wi) @ wo."""
+    return activation(x @ wi, act) @ wo
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool) -> torch.Tensor:

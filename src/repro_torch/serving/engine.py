@@ -46,8 +46,11 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8, cache_len: int = 256,
                  batcher: Optional[AdaptiveRequestBatcher] = None, device="cuda"):
         self.device = resolve_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params are on {params['embed'].device}, the engine on "
+        if not cfg.embed_input or "cross" in cfg.layer_pattern:
+            raise ValueError(f"{cfg.name}: the engine serves token prompts alone, and this "
+                             "config also takes frame embeddings or vision states")
+        if params["final_norm"].device != self.device:
+            raise ValueError(f"params are on {params['final_norm'].device}, the engine on "
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
@@ -94,7 +97,8 @@ class ServeEngine:
             prompt = torch.from_numpy(req.prompt.astype(np.int64)).to(self.device)[None, :]
             _, caches_1, _ = prefill(self.params, self.cfg, {"inputs": prompt},
                                      cache_len=self.cache_len)
-            # Copy the single-row caches into this slot of the pool.
+            # Copy the single-row caches into this slot of the pool (a local
+            # layer's ring has as many slots in both).
             for pool, one in zip(self.caches, caches_1):
                 for name in pool:
                     pool[name][:, slot: slot + 1] = one[name]

@@ -44,8 +44,9 @@ from repro_torch.kernels.merge_intersect import intersect_sorted
 from repro_torch.checkpointing import CheckpointManager, restore_checkpoint, save_checkpoint
 from repro_torch.configs import ShapeConfig, llcysa
 from repro_torch.launch.steps import build_train_step
+from repro_torch.models import get_config
 from repro_torch.models.attention import flash_attention, naive_attention
-from repro_torch.models.model import init_params
+from repro_torch.models.model import decode_step, init_params, prefill
 from repro_torch.training.optimizer import OptConfig, adamw_init
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -953,3 +954,47 @@ def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
         assert step in (3, 5)
         for a, b in zip(tree_leaves(got), tree_leaves(want)):
             assert a.device == cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_windowed_capped_flash_backward_on_the_card_matches_naive_autograd(cuda):
+    """gemma2's local attention at a small size: head_dim 256, window 128,
+    soft-cap 50, scale 1/16, float32; the bound of the float32 case above."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, w = (torch.randn((1, 512, 4, 256), generator=g, device=cuda) for _ in range(4))
+    kw = dict(causal=True, window=128, softcap_val=50.0, scale=1.0 / 16.0)
+
+    def run(fn, **kw2):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs, **kw, **kw2)
+        (out * w).sum().backward()
+        return [out.detach()] + [x.grad for x in xs]
+
+    for got, want in zip(run(flash_attention, q_chunk=128, kv_block=64), run(naive_attention)):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b"])
+def test_ring_cache_decode_on_the_card_matches_prefill_and_the_cpu(cuda, arch):
+    """smoke() in float32 (no TF32): a prompt past the local window, then
+    decode steps that wrap the ring further; each step's logits agree with
+    a prefill over the longer prompt within tests/test_models.py's 2e-3,
+    and with the same decode on the CPU within atol = rtol = 1e-4."""
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 48)))
+    s = cfg.window + 4
+    logits = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda x: x.to(dev), cpu_params)
+        x = toks.to(dev)
+        _, caches, _ = prefill(params, cfg, {"inputs": x[:, :s]}, cache_len=48)
+        assert caches[0]["k"].shape[2] == min(cfg.window, 48)
+        steps = []
+        for t in range(s, 48):
+            ld, caches = decode_step(params, cfg, {"inputs": x[:, t:t + 1]}, caches,
+                                     torch.full((2,), t, device=dev))
+            lf, _, _ = prefill(params, cfg, {"inputs": x[:, :t + 1]})
+            assert float((ld - lf).abs().max()) < 2e-3
+            steps.append(ld.cpu())
+        logits[str(dev)] = torch.stack(steps)
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-4, atol=1e-4)

@@ -235,7 +235,7 @@ def test_registry_and_unported_configs():
     assert get_config("llcysa-analytics-100m").d_model == 768
     assert get_config("llcysa-analytics-100m", smoke=True) == llcysa.smoke()
     with pytest.raises(KeyError, match="ported so far"):
-        get_config("gemma2-9b")
+        get_config("mamba2-780m")
     with pytest.raises(NotImplementedError, match="MoE"):
         init_params(CFG.replace(n_experts=4, top_k=2), torch.Generator(), device="cpu")
 
