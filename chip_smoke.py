@@ -21,7 +21,7 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  nine paths at full size, each with every kernel launch count
+  main path  ten paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -213,6 +213,33 @@ no result line):
                 float32, window 1,024, soft-cap 50, scale 1/16, against
                 autograd of the naive attention within atol 1e-4 + rtol
                 1e-3. No kernel of the port's own runs on path 9.
+            10. the LM's MoE and SSM families. 10a: moonshot-v1-16b-a3b at
+                full width and depth (48 layers, d_model 2,048, 16 heads,
+                64 experts of d_ff 1,408, top-6, vocab 163,840, bf16;
+                28,057,995,264 parameters from a seeded init on a CUDA
+                generator, drawn a group's slice at a time) behind
+                ServeEngine with path 9a's traffic, warm-up and timers
+                (the free device memory is logged before it); the timed
+                decode step is the engine's first round of 8 prompts,
+                each prefilled into its slot, and its read bound counts
+                attention, norms, the KV caches, the embedding rows,
+                lm_head, the routers and the experts the router picks in
+                each layer that step (distinct ids) over 3.35 TB/s.
+                10b: zamba2-2.7b uncut (54 layers: 45 Mamba2 blocks and 9
+                applications of the shared attention block, d_model 2,560,
+                bf16) the same way, path 6's token ids taken modulo its
+                vocabulary of 32,000 (the tokenizer's is 32,768); its pool
+                holds the SSM state, the conv tail and each application's
+                K/V. The device ms of 10a and 10b come from profiler
+                windows of 3 calls. 10c: float32 decode
+                against prefill for moonshot-v1-16b-a3b, phi3.5-moe-42b-
+                a6.6b and mamba2-780m at 2 layers and zamba2-2.7b at one
+                pattern period (6), full width, batch 1: MoE at capacity
+                factor 16 (no token drops) on 112-token prompts
+                (cache_len 128), SSM on 600-token prompts (cache_len 640:
+                three chunks of 256, the last padded), 16 greedy decode
+                steps, each within 2e-3 of a prefill over the tokens so
+                far. No kernel of the port's own runs on path 10.
              Paths 1-3 also run the Cmp and Match filter nodes:
              domain = A AND bytes_out < 1000 on all four schemes and on
              path 3 with spec (a), Match(domain, "d0000") (the ten most
@@ -2133,19 +2160,25 @@ def run_pipeline(seed, dev, zero_launches, read_launches, files=PIPELINE_FILES,
     return report, store, tok, prompts, launches
 
 
-def serve_prompts(cfg, params, dev, prompts, base_alloc, tag):
+def serve_prompts(cfg, params, dev, prompts, base_alloc, tag, prefilled=False,
+                  profiled_calls=10):
     """Path 7's traffic on ``params``: after a 2-request warm-up,
     ServeEngine(max_batch LM_MAX_BATCH, cache_len LM_CACHE_LEN) answers
     ``prompts`` with LM_NEW_TOKENS new tokens each, and every request must
     finish with that many tokens in range. Then where a round's time goes:
     one decode step of every slot and one prompt's prefill, with host
     dispatch (cuda_ms) and on the device alone (every CUDA activity in a
-    profiler window). Returns (the serve report, the breakdown, the decode
-    step as a function of no arguments)."""
+    profiler window of ``profiled_calls`` calls). The step feeds zeros to
+    zero caches or, ``prefilled``, is the engine's first decode round of
+    the first LM_MAX_BATCH prompts: each prefilled alone into its slot,
+    its last token fed again at its length.
+    Returns (the serve report, the breakdown, the decode step as a
+    function of no arguments, and the step's caches)."""
     import numpy as np
     import torch
     from repro_torch.models.model import decode_step, init_caches, prefill
     from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_leaves
 
     warm = ServeEngine(cfg, params, max_batch=2, cache_len=LM_CACHE_LEN, device=dev)
     for p in prompts[:2]:
@@ -2186,6 +2219,12 @@ def serve_prompts(cfg, params, dev, prompts, base_alloc, tag):
     x = torch.from_numpy(prompts.astype(np.int64)).to(dev)
     slots = init_caches(params, cfg, LM_MAX_BATCH, LM_CACHE_LEN)
     tok1 = torch.zeros((LM_MAX_BATCH, 1), dtype=torch.int64, device=dev)
+    if prefilled:
+        for i in range(LM_MAX_BATCH):
+            _, one, _ = prefill(params, cfg, {"inputs": x[i:i + 1]}, cache_len=LM_CACHE_LEN)
+            for pool, leaf in zip(tree_leaves(slots), tree_leaves(one)):
+                pool[:, i:i + 1] = leaf
+        tok1 = x[:LM_MAX_BATCH, -1:]
     pos = torch.full((LM_MAX_BATCH,), x.shape[1], dtype=torch.int32, device=dev)
 
     def step():
@@ -2195,12 +2234,14 @@ def serve_prompts(cfg, params, dev, prompts, base_alloc, tag):
         return prefill(params, cfg, {"inputs": x[:1]}, cache_len=LM_CACHE_LEN)
 
     breakdown = {
-        "decode_step_ms": cuda_ms(step), "decode_step_device_ms": device_ms(step, ("",)),
-        "prefill_ms": cuda_ms(prefill_one), "prefill_device_ms": device_ms(prefill_one, ("",)),
+        "decode_step_ms": cuda_ms(step),
+        "decode_step_device_ms": device_ms(step, ("",), calls=profiled_calls),
+        "prefill_ms": cuda_ms(prefill_one),
+        "prefill_device_ms": device_ms(prefill_one, ("",), calls=profiled_calls),
     }
     log(tag, f"{cfg.name}: one decode step of the {LM_MAX_BATCH} slots and one prompt's "
         "prefill: " + json.dumps(breakdown))
-    return serve, breakdown, step
+    return serve, breakdown, step, slots
 
 
 def run_lm_serve(seed, dev, tok, prompts):
@@ -2220,8 +2261,8 @@ def run_lm_serve(seed, dev, tok, prompts):
     base_alloc = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
-    report["serve"], report["breakdown"], _ = serve_prompts(cfg, params, dev, prompts,
-                                                            base_alloc, "lm")
+    report["serve"], report["breakdown"], _, _ = serve_prompts(cfg, params, dev, prompts,
+                                                               base_alloc, "lm")
     x = torch.from_numpy(prompts.astype(np.int64)).to(dev)
     s = x.shape[1]
 
@@ -2561,8 +2602,8 @@ def run_family_serve(seed, dev, prompts):
     report["config"]["params_allocated"] = n_params
     report["weights_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
     del leaves
-    report["serve"], report["breakdown"], step = serve_prompts(cfg, params, dev, prompts,
-                                                               base_alloc, "family")
+    report["serve"], report["breakdown"], step, _ = serve_prompts(cfg, params, dev, prompts,
+                                                                  base_alloc, "family")
     report["breakdown"]["weights_read_bound_ms"] = (1e3 * report["weights_bytes"]
                                                     / HBM_BYTES_PER_S)
     _, _, _, report["top_kernels_decode_step"] = profiled_breakdown(step)
@@ -2642,6 +2683,202 @@ def run_families(seed, dev, prompts):
                                                     **FAMILY_FLASH_KW)
     log("family", "windowed, capped flash backward vs naive autograd on the card: "
         + json.dumps(report["flash_backward"]))
+    return report
+
+
+# Path 10: the LM's MoE and SSM families. 10a serves moonshot-v1-16b-a3b
+# at full width and depth (56.1 GB of bf16 weights fit one card beside
+# what paths 1-9 hold) and 10b zamba2-2.7b uncut, with path 7's traffic;
+# 10c holds float32 decode against prefill for the four configs at full
+# width and cut depth. phi3.5-moe-42b-a6.6b (83.7 GB in bf16) does not fit
+# one card whole, so it runs in 10c alone.
+MOE_SSM_SERVE = ("moonshot-v1-16b-a3b", "zamba2-2.7b")
+MOE_SSM_DECODE = {  # arch: (layers, prompt length, cache_len), batch 1, float32
+    "moonshot-v1-16b-a3b": (2, 112, 128),
+    "phi3.5-moe-42b-a6.6b": (2, 112, 128),
+    "mamba2-780m": (2, 600, 640),  # chunks of 256: three, the last padded
+    "zamba2-2.7b": (6, 600, 640),  # one pattern period: 5 SSM layers and the shared block
+}
+MOE_SSM_CAPACITY = 16.0  # no token drops, as tests/test_models.py holds MoE decode
+MOE_SSM_PROFILED_CALLS = 3  # a 48-layer step is thousands of kernels: keep the window short
+
+
+def picked_experts(step):
+    """Run step() once and return, per MoE layer in order, the number of
+    distinct experts its router picked over the step's tokens."""
+    import torch
+    import repro_torch.models.model as model_mod
+
+    moe_ffn = model_mod.moe_ffn
+    picked = []
+
+    def counting(params, x, *, top_k, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ params["router"], dim=-1)
+        picked.append(int(torch.unique(torch.topk(probs, top_k, dim=-1).indices).numel()))
+        return moe_ffn(params, x, top_k=top_k, **kw)
+
+    model_mod.moe_ffn = counting
+    try:
+        step()
+    finally:
+        model_mod.moe_ffn = moe_ffn
+    return picked
+
+
+def decode_read_bytes(params, caches, n_slots, picked=None):
+    """The bytes one decode step of ``n_slots`` slots must read: every
+    weight leaf once, but the embedding (its slots' rows) and, with
+    ``picked`` (distinct experts per layer), only the picked experts of
+    each MoE leaf; every cache leaf once."""
+    from repro_torch.tree import tree_leaves
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    total = sum(nbytes(t) for t in tree_leaves(caches))
+    for name, t in params.items():
+        if name == "embed":
+            total += n_slots * t.shape[1] * t.element_size()
+        elif name != "groups":
+            total += sum(nbytes(x) for x in tree_leaves(t))
+    for layer in params["groups"]:
+        for name, t in layer.items():
+            if name == "moe" and picked is not None:
+                total += nbytes(t["router"])
+                per_expert = sum(nbytes(t[k][0, 0]) for k in ("wi_gate", "wi_up", "wo"))
+                total += per_expert * sum(picked)
+            else:
+                total += sum(nbytes(x) for x in tree_leaves(t))
+    return total
+
+
+def run_moe_ssm_serve(seed, dev, prompts, arch):
+    """Path 10a/10b: ``arch`` at full width and depth in bf16 (seeded init
+    on a CUDA generator) behind ServeEngine with path 7's traffic; the
+    decode step (the engine's first round of 8 prefilled prompts) and
+    one prefill with dispatch and on the device, the step's device time
+    by kernel, and its read bound over 3.35 TB/s."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    # Path 6's tokenizer has 32,768 ids, zamba2 32,000: ids past the
+    # vocabulary wrap around it.
+    prompts = prompts % cfg.vocab_size
+    report = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                         "layer_pattern": list(cfg.layer_pattern), "d_model": cfg.d_model,
+                         "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                         "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                         "ssm_state": cfg.ssm_state, "dtype": cfg.dtype,
+                         "params": cfg.param_count()}}
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    report["mem_get_info_before"] = {"free_bytes": free, "total_bytes": total,
+                                     "allocated_bytes": torch.cuda.memory_allocated(dev)}
+    log("moe_ssm", f"{cfg.name}: before init " + json.dumps(report["mem_get_info_before"]))
+    weights = cfg.param_count() * 2  # bf16
+    check(weights < free, f"{cfg.name}: {weights} B of weights do not fit the {free} B free")
+    base_alloc = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize(dev)
+    report["init_s"] = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(abs(n_params - cfg.param_count()) / n_params < 0.02,
+          f"{cfg.name}: {n_params} parameters, the config counts {cfg.param_count()}")
+    report["config"]["params_allocated"] = n_params
+    report["weights_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    t0 = time.perf_counter()
+    report["serve"], report["breakdown"], step, slots = serve_prompts(
+        cfg, params, dev, prompts, base_alloc, "moe_ssm", prefilled=True,
+        profiled_calls=MOE_SSM_PROFILED_CALLS)
+    report["serve_and_breakdown_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    picked = picked_experts(step) if cfg.n_experts else None
+    read = decode_read_bytes(params, slots, LM_MAX_BATCH, picked)
+    report["breakdown"].update(
+        read_bytes=read, read_bound_ms=1e3 * read / HBM_BYTES_PER_S,
+        weights_read_bound_ms=1e3 * report["weights_bytes"] / HBM_BYTES_PER_S,
+        experts_picked_per_layer=picked)
+    log("moe_ssm", f"{cfg.name}: decode step read bound " + json.dumps(
+        {k: report["breakdown"][k] for k in ("read_bytes", "read_bound_ms",
+                                             "weights_read_bound_ms")})
+        + (f"; distinct experts picked per layer {picked}" if picked else ""))
+    _, _, _, report["top_kernels_decode_step"] = profiled_breakdown(step)
+    report["bound_and_kernels_s"] = time.perf_counter() - t0
+    for row in report["top_kernels_decode_step"]:
+        log("moe_ssm", f"[kernel time, one {cfg.name} decode step] " + json.dumps(row))
+    log("moe_ssm", f"{cfg.name}: seconds " + json.dumps(
+        {k: report[k] for k in ("init_s", "serve_and_breakdown_s", "bound_and_kernels_s")}))
+    del step, slots, params
+    torch.cuda.empty_cache()
+    return report
+
+
+def moe_ssm_decode_check(seed, dev, arch):
+    """Path 10c for one config: full width, MOE_SSM_DECODE's depth, float32
+    from a seeded init, MoE at MOE_SSM_CAPACITY; a prompt prefilled once,
+    then FAMILY_DECODE_STEPS greedy decode steps, each step's logits held
+    to a prefill over the prompt plus the tokens generated so far."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    full = get_config(arch)
+    n_layers, s, cache_len = MOE_SSM_DECODE[arch]
+    cfg = full.replace(n_layers=n_layers, dtype="float32")
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=MOE_SSM_CAPACITY)
+    steps = FAMILY_DECODE_STEPS
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, g, device=dev)
+    seq = torch.randint(0, cfg.vocab_size, (1, s), generator=g, device=dev)
+    logits, caches, _ = prefill(params, cfg, {"inputs": seq}, cache_len=cache_len)
+    errs = []
+    for j in range(steps):
+        seq = torch.cat([seq, torch.argmax(logits, dim=-1)[:, None]], dim=1)
+        t = s + j
+        ld, caches = decode_step(params, cfg, {"inputs": seq[:, t:t + 1]}, caches,
+                                 torch.full((1,), t, device=dev))
+        lf, _, _ = prefill(params, cfg, {"inputs": seq[:, :t + 1]})
+        errs.append(float((ld - lf).abs().max()))
+        logits = ld
+    torch.cuda.synchronize(dev)
+    ssm_layers = any(k.startswith("ssm") for k in cfg.layer_pattern)
+    row = {"arch": arch, "n_layers": cfg.n_layers, "layer_pattern": list(cfg.layer_pattern),
+           "d_model": cfg.d_model, "params": cfg.param_count(), "prompt": s,
+           "cache_len": cache_len, "steps": steps,
+           "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
+           "ssm_chunks": -(-s // cfg.ssm_chunk) if ssm_layers else None,
+           "max_abs_err": max(errs), "per_step": errs, "atol": LM_DECODE_ATOL,
+           "seconds": time.perf_counter() - t0}
+    del params, caches
+    torch.cuda.empty_cache()
+    check(max(errs) < LM_DECODE_ATOL, f"path 10c {arch}: float32 decode differs from prefill "
+          f"by {max(errs)}")
+    check(not ssm_layers or (s > 2 * cfg.ssm_chunk and s % cfg.ssm_chunk),
+          f"path 10c {arch}: the prompt of {s} does not span three chunks of "
+          f"{cfg.ssm_chunk}, the last padded")
+    return row
+
+
+def run_moe_ssm(seed, dev, prompts):
+    """Path 10: 10a moonshot-v1-16b-a3b and 10b zamba2-2.7b served, 10c
+    decode against prefill for the four MoE and SSM configs."""
+    report = {"serve": {arch: run_moe_ssm_serve(seed, dev, prompts, arch)
+                        for arch in MOE_SSM_SERVE},
+              "decode_vs_prefill": []}
+    for arch in MOE_SSM_DECODE:
+        row = moe_ssm_decode_check(seed, dev, arch)
+        report["decode_vs_prefill"].append(row)
+        log("moe_ssm", "float32 decode vs prefill: " + json.dumps(
+            {k: v for k, v in row.items() if k != "per_step"}))
     return report
 
 
@@ -2932,9 +3169,18 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None):
     report["families"]["path_seconds"] = time.perf_counter() - t0
     launches_9 = read_launches()
     log("launches", "path 9 (LM families; no kernel of their own): " + json.dumps(launches_9))
+    # Path 10: the LM's MoE and SSM families; moonshot-v1-16b-a3b and
+    # zamba2-2.7b served on path 6's token sequences.
+    zero_launches()
+    t0 = time.perf_counter()
+    report["moe_ssm"] = run_moe_ssm(seed, dev, prompts)
+    report["moe_ssm"]["path_seconds"] = time.perf_counter() - t0
+    launches_10 = read_launches()
+    log("launches", "path 10 (LM MoE/SSM; no kernel of their own): "
+        + json.dumps(launches_10))
     del prompts
     paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7,
-             launches_8, launches_9)
+             launches_8, launches_9, launches_10)
     launches = {k: sum(p[k] for p in paths) for k in launches_1}
     report["launches"] = {"total": launches,
                           **{f"path_{i}": p for i, p in enumerate(paths, start=1)}}

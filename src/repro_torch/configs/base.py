@@ -3,10 +3,7 @@ configs/base.py (ModelConfig, ShapeConfig and the SHAPES cells).
 
 One `ModelConfig` instance per architecture lives in
 `repro_torch/configs/<id>.py` with the published dimensions, plus a
-`smoke()` reduction of the same family for CPU tests. The port's model
-(models/model.py) runs the attention-side families (global, local and
-cross layers, with their options); the MoE and SSM fields are kept so a
-config reads as the reference's.
+`smoke()` reduction of the same family for CPU tests.
 """
 from __future__ import annotations
 

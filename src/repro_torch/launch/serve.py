@@ -8,8 +8,10 @@ port of the reference's launch/serve.py.
 As in the reference, --smoke is on by default (the config's smoke()
 reduction); the weights are seeded random. --arch takes any registered
 config whose inputs are tokens alone (ServeEngine refuses musicgen-medium
-and llama-3.2-vision-11b), for example --arch gemma2-9b. --device
-defaults to cuda and raises without CUDA.
+and llama-3.2-vision-11b): llcysa-analytics-100m, gemma2-9b, gemma3-12b,
+internlm2-20b, qwen1.5-4b, the MoE configs moonshot-v1-16b-a3b and
+phi3.5-moe-42b-a6.6b, and the SSM configs mamba2-780m and zamba2-2.7b.
+--device defaults to cuda and raises without CUDA.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import argparse
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llcysa-analytics-100m")
+    ap.add_argument("--arch", default="llcysa-analytics-100m",
+                    help="a registered config with token inputs, e.g. gemma2-9b, "
+                         "moonshot-v1-16b-a3b, phi3.5-moe-42b-a6.6b, mamba2-780m, zamba2-2.7b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=8)

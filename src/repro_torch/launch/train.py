@@ -12,7 +12,9 @@ device, and the EventTokenizer turns the stored events into token
 sequences, so --arch takes the configs with token inputs alone (every
 registered one but musicgen-medium and llama-3.2-vision-11b; the
 reference's launcher fails on those two), for example --arch gemma2-9b
---smoke. --device replaces the reference's --mesh (one device, no mesh)
+--smoke, the MoE configs moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b
+(the loss adds 0.01 x the router's aux loss) and the SSM configs
+mamba2-780m and zamba2-2.7b. --device replaces the reference's --mesh (one device, no mesh)
 and defaults to cuda, raising without CUDA; --smoke takes the config's
 smoke() reduction (sequence 256, batch 4 unless given).
 
@@ -33,7 +35,9 @@ import time
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llcysa-analytics-100m")
+    ap.add_argument("--arch", default="llcysa-analytics-100m",
+                    help="a registered config with token inputs, e.g. gemma2-9b, "
+                         "moonshot-v1-16b-a3b, phi3.5-moe-42b-a6.6b, mamba2-780m, zamba2-2.7b")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true", help="the config's smoke() reduction")

@@ -26,8 +26,8 @@ def params_from_reference(tree: Any, device="cuda", dtype=None) -> Any:
     """Map the reference's parameter tree (dicts and tuples of numpy
     arrays) leaf for leaf onto tensors on ``device``, cast to ``dtype``
     when given, but the leaves the reference keeps in float32
-    (``model.FLOAT32_LEAVES``, the cross-attention gates), which keep
-    their own dtype. The structure is the reference's, which is the
+    (``model.FLOAT32_LEAVES``: the cross-attention gates, the MoE router,
+    the SSM's dt_bias, A_log and D), which keep their own dtype. The structure is the reference's, which is the
     port's."""
     dev = resolve_device(device)
 

@@ -1,20 +1,22 @@
 """The decoder stack of the LM; the PyTorch port of the reference's
-models/model.py, cut to its attention-side layers: global layers,
-sliding-window local layers with ring caches, and gated cross-attention
-layers over vision states, with the options the configs set (qkv bias,
-qk norm, sandwich norms, soft-capping, a local RoPE base, attention
+models/model.py, every layer kind it has: global layers, sliding-window
+local layers with ring caches, gated cross-attention layers over vision
+states, MoE FFNs (models/moe.py), Mamba2 SSM layers (models/ssm.py) and
+zamba2's shared attention block, with the options the configs set (qkv
+bias, qk norm, sandwich norms, soft-capping, a local RoPE base, attention
 scale, the GLU or plain MLP, tied or untied embeddings, precomputed input
-embeddings). The MoE, SSM and shared-attention layers wait for a later
-slice (``check_supported``).
+embeddings).
 
 Parameters keep the reference's tree: {["embed"], ["lm_head"],
 "final_norm", "groups": (one layer dict per position of the layer
-pattern)}, each layer leaf stacked over the pattern's n_groups
-repetitions on a leading axis, so models/carry.py maps the reference's
-tree one to one. The reference scans over that axis; here a Python loop
-walks the layers group-major (group g runs pattern positions 0..P-1,
-layer g * P + p), each taking its slice of every stacked leaf (a view,
-so the gradients land in the stacked leaf).
+pattern), ["shared_attn"]}, each layer leaf (the "moe" and "ssm"
+sub-dicts' too) stacked over the pattern's n_groups repetitions on a
+leading axis, so models/carry.py maps the reference's tree one to one.
+The reference scans over that axis; here a Python loop walks the layers
+group-major (group g runs pattern positions 0..P-1, layer g * P + p),
+each taking its slice of every stacked leaf (a view, so the gradients
+land in the stacked leaf). The shared block's weights are one unstacked
+dict that every ssm_shared_attn layer applies.
 
 Entry points:
   forward_train   causal forward + chunked cross-entropy, differentiable
@@ -23,18 +25,21 @@ Entry points:
   decode_step     one token against the caches, written in place (no
                   autograd)
 
-Caches mirror the reference's: a tuple per layer-pattern position of
-{"k", "v"} tensors (n_groups, B, L, n_kv, head_dim), with L the cache
-length for global layers, min(window, cache length) for local layers (a
-ring: position p sits in slot p % L) and the image tokens for cross
-layers. The port has one GPU and no mesh, so the reference's sharding
-constraints are gone.
+Caches mirror the reference's: a tuple per layer-pattern position, each
+leaf stacked over n_groups. Attention layers hold {"k", "v"} tensors
+(n_groups, B, L, n_kv, head_dim), with L the cache length for global
+layers, min(window, cache length) for local layers (a ring: position p
+sits in slot p % L) and the image tokens for cross layers. SSM layers
+hold {"state" (n_groups, B, H, N, P), "conv" (n_groups, B, d_conv - 1,
+conv_dim)}, both float32, and an ssm_shared_attn layer also its own
+application's {"sa": {"k", "v"}}. The port has one GPU and no mesh, so
+the reference's sharding constraints are gone.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,14 +47,20 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
+from ..tree import tree_flatten, tree_map, tree_unflatten
 from .attention import decode_attention, flash_attention, ring_slot_positions
 from .layers import apply_rope, embed, mlp_glu, mlp_plain, rms_norm, softcap, unembed
+from .moe import init_moe_params, moe_ffn
+from .ssm import init_ssm_params, spec_from_cfg, ssm_decode_step, ssm_forward
 
 PyTree = Any
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# Leaves the reference keeps in float32 whatever the model's dtype.
-FLOAT32_LEAVES = frozenset({"gate_attn", "gate_mlp"})
+# Leaves the reference keeps in float32 whatever the model's dtype: the
+# cross gates, the MoE router, and the SSM's dt bias, decay and skip.
+FLOAT32_LEAVES = frozenset({"gate_attn", "gate_mlp", "router", "dt_bias", "A_log", "D"})
+SSM_KINDS = ("ssm", "ssm_shared_attn")
+LAYER_KINDS = ("global", "local", "cross") + SSM_KINDS
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -57,14 +68,13 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config that needs a layer this port has not ported."""
-    missing = [name for name, cut in (
-        ("MoE", cfg.n_experts > 0),
-        ("SSM layers", any(k in ("ssm", "ssm_shared_attn") for k in cfg.layer_pattern)),
-        ("shared attention", cfg.shared_attn_heads > 0),
-    ) if cut]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
+    """Raise for a config whose layer pattern names a kind the model does
+    not have, or applies the shared block without its heads."""
+    unknown = sorted(set(cfg.layer_pattern) - set(LAYER_KINDS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown layer kinds {unknown}; known: {LAYER_KINDS}")
+    if "ssm_shared_attn" in cfg.layer_pattern and not cfg.shared_attn_heads:
+        raise ValueError(f"{cfg.name}: ssm_shared_attn layers need shared_attn_heads")
 
 
 # =====================================================================
@@ -72,23 +82,40 @@ def check_supported(cfg: ModelConfig) -> None:
 # =====================================================================
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> PyTree:
     """Seeded random parameters (no weights exist in the repository): the
-    reference's shapes, scales and dtypes, drawn in float32 from
-    ``generator`` on its own device (a CUDA generator keeps the draw off
-    the host), then cast and moved to ``device``."""
+    reference's shapes, scales and dtypes. Each leaf is allocated on
+    ``device`` in its dtype and drawn in float32 from ``generator`` on
+    the generator's own device (a CUDA generator keeps the draw off the
+    host), a stacked leaf one group's slice at a time: the float32 draw
+    of a whole expert leaf would not fit beside the model."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dt(cfg)
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
     nh, nkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_groups
 
-    def normal(shape, std):
-        x = torch.randn(shape, generator=generator, device=generator.device).mul_(std)
-        return x.to(device=dev, dtype=dt)
+    def draw(shape, std):
+        return torch.randn(shape, generator=generator, device=generator.device).mul_(std)
+
+    def normal(shape, std, dtype=dt):
+        """A leaf stacked over its leading axis, drawn slice by slice."""
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(shape[0]):
+            out[i] = draw(shape[1:], std)
+        return out
+
+    def whole(shape, std):
+        return draw(shape, std).to(device=dev, dtype=dt)
+
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    def layer(kind: str) -> Dict[str, torch.Tensor]:
+    def layer(kind: str) -> Dict[str, Any]:
+        if kind in SSM_KINDS:
+            return {"norm": zeros(n, d), "ssm": init_ssm_params(normal, full, n,
+                                                                spec_from_cfg(cfg), dt)}
         std = 1.0 / math.sqrt(d)
         p = {"norm": zeros(n, d),
              "wq": normal((n, d, nh * hd), std),
@@ -105,22 +132,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
             p.update(gate_attn=zeros(n, dtype=torch.float32),
                      gate_mlp=zeros(n, dtype=torch.float32))
         p["mlp_norm"] = zeros(n, d)
-        if cfg.mlp_type == "glu":
-            p.update(wi_gate=normal((n, d, ff), std), wi_up=normal((n, d, ff), std))
+        if cfg.n_experts:
+            p["moe"] = init_moe_params(normal, n, d, ff, cfg.n_experts, dt)
         else:
-            p["wi"] = normal((n, d, ff), std)
-        p["wo_mlp"] = normal((n, ff, d), 1.0 / math.sqrt(ff))
+            if cfg.mlp_type == "glu":
+                p.update(wi_gate=normal((n, d, ff), std), wi_up=normal((n, d, ff), std))
+            else:
+                p["wi"] = normal((n, d, ff), std)
+            p["wo_mlp"] = normal((n, ff, d), 1.0 / math.sqrt(ff))
         if cfg.sandwich_norm:
             p["post_mlp_norm"] = zeros(n, d)
         return p
 
     params: Dict[str, Any] = {}
     if cfg.embed_input:
-        params["embed"] = normal((cfg.vocab_size, d), 0.02)
+        params["embed"] = whole((cfg.vocab_size, d), 0.02)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+        params["lm_head"] = whole((d, cfg.vocab_size), 1.0 / math.sqrt(d))
     params["final_norm"] = zeros(d)
     params["groups"] = tuple(layer(kind) for kind in cfg.layer_pattern)
+    if cfg.shared_attn_heads:
+        # zamba2's shared transformer block: one set of weights, applied by
+        # every ssm_shared_attn layer.
+        snh, snkv, sff = cfg.shared_attn_heads, cfg.shared_attn_kv_heads, cfg.shared_attn_d_ff
+        shd = d // snh
+        std = 1.0 / math.sqrt(d)
+        params["shared_attn"] = {
+            "norm": zeros(d),
+            "wq": whole((d, snh * shd), std), "wk": whole((d, snkv * shd), std),
+            "wv": whole((d, snkv * shd), std), "wo": whole((snh * shd, d), std),
+            "mlp_norm": zeros(d),
+            "wi_gate": whole((d, sff), std), "wi_up": whole((d, sff), std),
+            "wo_mlp": whole((sff, d), 1.0 / math.sqrt(sff)),
+        }
     return params
 
 
@@ -215,8 +259,13 @@ def _attn_block(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions
 
 
 def _mlp_block(p: Dict, h, cfg: ModelConfig, kind: str):
+    """Returns (mlp_out, the MoE's aux loss, None for a dense MLP)."""
     x = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    if cfg.mlp_type == "glu":
+    aux = None
+    if cfg.n_experts:
+        out, aux = moe_ffn(p["moe"], x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                           act=cfg.act)
+    elif cfg.mlp_type == "glu":
         out = mlp_glu(x, p["wi_gate"], p["wi_up"], p["wo_mlp"], cfg.act)
     else:
         out = mlp_plain(x, p["wi"], p["wo_mlp"], cfg.act)
@@ -224,64 +273,161 @@ def _mlp_block(p: Dict, h, cfg: ModelConfig, kind: str):
         out = rms_norm(out, p["post_mlp_norm"], cfg.norm_eps)
     if kind == "cross":
         out = out * torch.tanh(p["gate_mlp"]).to(out.dtype)
-    return out
+    return out, aux
+
+
+def _shared_attn_block(sp: Dict, h, cfg: ModelConfig, *, mode: str, positions, cache, cur_pos,
+                       cache_len: Optional[int]):
+    """zamba2's shared transformer block: full causal attention (head dim
+    d_model // shared_attn_heads, RoPE at rope_theta) then a GLU MLP, each
+    added to the residual stream. Returns (h, this application's new
+    {"k", "v"} cache); at decode the new token's K/V are written into
+    ``cache`` in place."""
+    b, s, d = h.shape
+    nh, nkv = cfg.shared_attn_heads, cfg.shared_attn_kv_heads
+    hd = d // nh
+    x = rms_norm(h, sp["norm"], cfg.norm_eps)
+    q = apply_rope((x @ sp["wq"]).reshape(b, s, nh, hd), positions, cfg.rope_theta)
+    k_new = apply_rope((x @ sp["wk"]).reshape(b, s, nkv, hd), positions, cfg.rope_theta)
+    v_new = (x @ sp["wv"]).reshape(b, s, nkv, hd)
+    new_cache = None
+    if mode in ("train", "prefill"):
+        out = flash_attention(q, k_new, v_new, causal=True)
+    if mode == "prefill":
+        if s > cache_len:
+            raise ValueError(f"prompt of {s} tokens exceeds cache_len {cache_len}")
+        new_cache = {"k": k_new.new_zeros((b, cache_len, nkv, hd)),
+                     "v": v_new.new_zeros((b, cache_len, nkv, hd))}
+        new_cache["k"][:, :s] = k_new
+        new_cache["v"][:, :s] = v_new
+    elif mode == "decode":
+        bidx = torch.arange(b, device=h.device)
+        cache["k"][bidx, cur_pos] = k_new[:, 0]
+        cache["v"][bidx, cur_pos] = v_new[:, 0]
+        out = decode_attention(q, cache["k"], cache["v"], cur_pos)
+        new_cache = cache
+    h = h + out.reshape(b, s, nh * hd) @ sp["wo"]
+    x2 = rms_norm(h, sp["mlp_norm"], cfg.norm_eps)
+    return h + mlp_glu(x2, sp["wi_gate"], sp["wi_up"], sp["wo_mlp"], cfg.act), new_cache
+
+
+def _ssm_layer(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions, cache,
+               cur_pos, cache_len: Optional[int], shared):
+    """A Mamba2 block added to the residual stream; an ssm_shared_attn
+    layer then applies the shared block. Returns (h, the layer's new
+    cache); at decode the state, conv tail and shared K/V are written
+    into ``cache`` in place."""
+    spec = spec_from_cfg(cfg)
+    x = rms_norm(h, p["norm"], cfg.norm_eps)
+    new_cache = None
+    if mode == "train":
+        h = h + ssm_forward(p["ssm"], x, spec)
+    elif mode == "prefill":
+        out, (state, conv) = ssm_forward(p["ssm"], x, spec, return_state=True)
+        h = h + out
+        new_cache = {"state": state, "conv": conv}
+    else:
+        out, (state, conv) = ssm_decode_step(p["ssm"], x, (cache["state"], cache["conv"]), spec)
+        h = h + out
+        cache["state"].copy_(state)
+        cache["conv"].copy_(conv)
+        new_cache = cache
+    if kind == "ssm_shared_attn":
+        h, sa = _shared_attn_block(shared, h, cfg, mode=mode, positions=positions,
+                                   cache=None if cache is None else cache["sa"],
+                                   cur_pos=cur_pos, cache_len=cache_len)
+        if mode == "prefill":
+            new_cache["sa"] = sa
+    return h, new_cache
 
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _layer(p: Dict, h, cfg: ModelConfig, kind: str, **attn_kw):
-    """One layer: attention then MLP, each added to the residual stream.
-    Returns (h, the layer's new cache)."""
-    attn_out, new_cache = _attn_block(p, h, cfg, kind, **attn_kw)
+def _layer(p: Dict, h, cfg: ModelConfig, kind: str, *, shared=None, vision_states=None, **kw):
+    """One layer: an SSM block, or attention then the MLP, each added to
+    the residual stream. Returns (h, the layer's new cache, the MoE's aux
+    loss or None)."""
+    if kind in SSM_KINDS:
+        return (*_ssm_layer(p, h, cfg, kind, shared=shared, **kw), None)
+    attn_out, new_cache = _attn_block(p, h, cfg, kind, vision_states=vision_states, **kw)
     h = h + attn_out
-    return h + _mlp_block(p, h, cfg, kind), new_cache
+    mlp_out, aux = _mlp_block(p, h, cfg, kind)
+    return h + mlp_out, new_cache, aux
 
 
-def _train_layer(h, positions, vision_states, *leaves, names, cfg: ModelConfig, kind: str):
-    return _layer(dict(zip(names, leaves)), h, cfg, kind, mode="train", positions=positions,
-                  cache=None, cur_pos=None, vision_states=vision_states,
-                  cache_len=h.shape[1])[0]
+def _train_layer(h, positions, vision_states, *leaves, layer_def, shared_def, cfg: ModelConfig,
+                 kind: str):
+    """One layer in training from flat leaves (the checkpoint's inputs):
+    the layer's, then the shared block's where the layer applies it.
+    Returns (h, aux or None)."""
+    n = layer_def.num_leaves
+    shared = None if shared_def is None else tree_unflatten(shared_def, leaves[n:])
+    h, _, aux = _layer(tree_unflatten(layer_def, leaves[:n]), h, cfg, kind, mode="train",
+                       positions=positions, cache=None, cur_pos=None,
+                       vision_states=vision_states, cache_len=h.shape[1], shared=shared)
+    return h, aux
+
+
+def _group_slices(tree, n: int) -> List:
+    """The n slices of a dict tree whose leaves are stacked on a leading
+    axis of n: per group, the same tree of that group's views (one unbind
+    per leaf, so the gradients land in the stacked leaves)."""
+    if isinstance(tree, dict):
+        per_key = {k: _group_slices(v, n) for k, v in tree.items()}
+        return [{k: sl[g] for k, sl in per_key.items()} for g in range(n)]
+    return tree.unbind(0)
 
 
 def _stack(params: PyTree, cfg: ModelConfig, h, *, mode: str, positions, caches, cur_pos,
-           vision_states, cache_len: int, remat: bool = False):
-    """Every layer in order, group-major. Returns (h, caches): prefill
-    builds them, decode writes into the ones given, train returns None.
+           vision_states, cache_len: Optional[int], remat: bool = False):
+    """Every layer in order, group-major. Returns (h, caches, aux): prefill
+    builds the caches, decode writes into the ones given, train returns
+    None; aux is the MoE layers' aux losses summed in layer order (None
+    without MoE).
 
     Training with remat runs each layer under an activation checkpoint,
     so the backward keeps only the residual stream entering each layer and
     recomputes the layer's inside. The reference checkpoints its scan body
     and nests the scan two levels deep (sqrt-L), a memory layout of XLA's
-    with the same values; one checkpoint per layer is its counterpart."""
+    with the same values; one checkpoint per layer is its counterpart.
+    The shared block's leaves enter each applying layer's checkpoint as
+    inputs, so their gradients from every application add up in them."""
     pattern = cfg.layer_pattern
-    per_pos = []  # per pattern position: leaf names, and per group its leaves
-    for layers in params["groups"]:
-        names = tuple(layers)
-        per_pos.append((names, list(zip(*(layers[k].unbind(0) for k in names)))))
+    n = cfg.n_groups
+    shared = params.get("shared_attn")
+    shared_leaves, shared_def = tree_flatten(shared) if shared is not None else ([], None)
+    per_pos = [_group_slices(layers, n) for layers in params["groups"]]
+    cache_pos = None if caches is None else [_group_slices(c, n) for c in caches]
     new = [[] for _ in pattern]
-    for g in range(cfg.n_groups):
+    aux = None
+    for g in range(n):
         for pos, kind in enumerate(pattern):
-            names, per_group = per_pos[pos]
-            leaves = per_group[g]
+            layer = per_pos[pos][g]
             if mode == "train":
-                fn = functools.partial(_train_layer, names=names, cfg=cfg, kind=kind)
-                if remat and _needs_grad(h, vision_states, *leaves):
-                    h = checkpoint(fn, h, positions, vision_states, *leaves, use_reentrant=False,
-                                   preserve_rng_state=False)
+                leaves, layer_def = tree_flatten(layer)
+                applies = kind == "ssm_shared_attn"
+                fn = functools.partial(_train_layer, layer_def=layer_def,
+                                       shared_def=shared_def if applies else None,
+                                       cfg=cfg, kind=kind)
+                args = (h, positions, vision_states, *leaves,
+                        *(shared_leaves if applies else ()))
+                if remat and _needs_grad(*args):
+                    h, a = checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
                 else:
-                    h = fn(h, positions, vision_states, *leaves)
-                continue
-            cache = None if caches is None else {k: v[g] for k, v in caches[pos].items()}
-            h, nc = _layer(dict(zip(names, leaves)), h, cfg, kind, mode=mode,
-                           positions=positions, cache=cache, cur_pos=cur_pos,
-                           vision_states=vision_states, cache_len=cache_len)
-            new[pos].append(nc)
+                    h, a = fn(*args)
+            else:
+                cache = None if cache_pos is None else cache_pos[pos][g]
+                h, nc, a = _layer(layer, h, cfg, kind, mode=mode, positions=positions,
+                                  cache=cache, cur_pos=cur_pos, vision_states=vision_states,
+                                  cache_len=cache_len, shared=shared)
+                new[pos].append(nc)
+            if a is not None:
+                aux = a if aux is None else aux + a
     if mode == "prefill":
-        caches = tuple({name: torch.stack([c[name] for c in per]) for name in ("k", "v")}
-                       for per in new)
-    return h, caches
+        caches = tuple(tree_map(lambda *cs: torch.stack(cs), *per) for per in new)
+    return h, caches, aux
 
 
 def _inputs_to_h(params, cfg: ModelConfig, batch: Dict):
@@ -339,18 +485,19 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def forward_train(params, cfg: ModelConfig, batch: Dict, remat: bool = True,
                   loss_chunk: int = 512):
     """batch {'inputs' (B, S) int | 'embeds' (B, S, D), 'targets' (B, S)
-    int, optional 'vision_states' (B, N, D)}. Returns (loss, metrics) as
-    the reference does (the attention-side stack has no auxiliary loss).
+    int, optional 'vision_states' (B, N, D)}. Returns (loss + 0.01 * the
+    MoE aux loss, metrics) as the reference does (aux is 0 without MoE).
     Differentiable in every parameter leaf; with ``remat`` each layer is
     an activation checkpoint. Without autograd (no leaf requires grad, or
     under torch.no_grad) it only scores."""
     h = _inputs_to_h(params, cfg, batch)
     b, s = h.shape[:2]
-    h, _ = _stack(params, cfg, h, mode="train", positions=_positions(b, s, h.device),
-                  caches=None, cur_pos=None, vision_states=batch.get("vision_states"),
-                  cache_len=s, remat=remat)
+    h, _, aux = _stack(params, cfg, h, mode="train", positions=_positions(b, s, h.device),
+                       caches=None, cur_pos=None, vision_states=batch.get("vision_states"),
+                       cache_len=s, remat=remat)
     loss, n_tok = chunked_xent(params, cfg, h, batch["targets"], chunk=loss_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
 
 
@@ -360,9 +507,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache_len: Optional[int] = No
     logits (B, V) float32, caches, last_pos (B,))."""
     h = _inputs_to_h(params, cfg, batch)
     b, s = h.shape[:2]
-    h, caches = _stack(params, cfg, h, mode="prefill", positions=_positions(b, s, h.device),
-                       caches=None, cur_pos=None, vision_states=batch.get("vision_states"),
-                       cache_len=cache_len or s)
+    h, caches, _ = _stack(params, cfg, h, mode="prefill",
+                          positions=_positions(b, s, h.device), caches=None, cur_pos=None,
+                          vision_states=batch.get("vision_states"), cache_len=cache_len or s)
     logits = _logits(params, cfg, h[:, -1:, :])[:, 0]
     return logits, caches, torch.full((b,), s - 1, dtype=torch.int32, device=h.device)
 
@@ -370,31 +517,46 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache_len: Optional[int] = No
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, batch: Dict, caches, cur_pos):
     """One decode step. batch {'inputs' (B, 1) | 'embeds' (B, 1, D)};
-    cur_pos (B,) the position of the new token. Writes its K/V into
-    ``caches`` and returns (logits (B, V) float32, caches). Cross layers
-    read the vision K/V their prefill cached."""
+    cur_pos (B,) the position of the new token. Writes its K/V (an SSM
+    layer its state and conv tail) into ``caches`` and returns (logits
+    (B, V) float32, caches). Cross layers read the vision K/V their
+    prefill cached."""
     h = _inputs_to_h(params, cfg, batch)
     cur_pos = cur_pos.long()
-    # cache_len is not read at decode (each layer takes its cache's own
-    # length); like the reference's caches_len it is position 0's, which
-    # for gemma2 is the local ring's.
-    h, caches = _stack(params, cfg, h, mode="decode", positions=cur_pos[:, None],
-                       caches=caches, cur_pos=cur_pos, vision_states=None,
-                       cache_len=caches[0]["k"].shape[2])
+    # Each layer takes its cache's own length at decode.
+    h, caches, _ = _stack(params, cfg, h, mode="decode", positions=cur_pos[:, None],
+                          caches=caches, cur_pos=cur_pos, vision_states=None, cache_len=None)
     return _logits(params, cfg, h)[:, 0], caches
 
 
 def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int, n_img: int = 0) -> Tuple:
-    """Zero caches on the parameters' device, for decode from scratch: one
-    {"k", "v"} per pattern position, min(window, cache_len) slots for a
-    local layer, ``n_img`` for a cross layer."""
+    """Zero caches on the parameters' device, for decode from scratch: per
+    pattern position {"k", "v"} with min(window, cache_len) slots for a
+    local layer and ``n_img`` for a cross layer; for an SSM layer its
+    float32 {"state", "conv"}, and the shared block's {"k", "v"} under
+    "sa" where the layer applies it."""
     dev = params["final_norm"].device
+    g = cfg.n_groups
+
+    def kv(length, heads, head_dim):
+        shape = (g, batch, length, heads, head_dim)
+        return {"k": torch.zeros(shape, dtype=_dt(cfg), device=dev),
+                "v": torch.zeros(shape, dtype=_dt(cfg), device=dev)}
+
     per_pos = []
     for kind in cfg.layer_pattern:
-        length = {"local": min(cfg.window, cache_len), "cross": n_img}.get(kind, cache_len)
-        shape = (cfg.n_groups, batch, length, cfg.n_kv_heads, cfg.head_dim_)
-        per_pos.append({"k": torch.zeros(shape, dtype=_dt(cfg), device=dev),
-                        "v": torch.zeros(shape, dtype=_dt(cfg), device=dev)})
+        if kind in SSM_KINDS:
+            spec = spec_from_cfg(cfg)
+            c = {"state": torch.zeros((g, batch, spec.n_heads, spec.d_state, spec.head_dim),
+                                      device=dev),
+                 "conv": torch.zeros((g, batch, spec.d_conv - 1, spec.conv_dim), device=dev)}
+            if kind == "ssm_shared_attn":
+                c["sa"] = kv(cache_len, cfg.shared_attn_kv_heads,
+                             cfg.d_model // cfg.shared_attn_heads)
+            per_pos.append(c)
+        else:
+            length = {"local": min(cfg.window, cache_len), "cross": n_img}.get(kind, cache_len)
+            per_pos.append(kv(length, cfg.n_kv_heads, cfg.head_dim_))
     return tuple(per_pos)
 
 

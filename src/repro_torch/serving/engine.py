@@ -6,7 +6,9 @@ every decode iteration steps all slots. Admission of waiting requests
 follows the paper's Alg 1 (serving/batcher.py). As in the reference, a
 request's prompt is prefilled into its slot (the prefill's logits are not
 used) and the first decode step feeds the prompt's last token again at
-position len(prompt); decoding is greedy.
+position len(prompt); decoding is greedy. Every slot, live or not, goes
+through each decode step, so a dead slot's token takes MoE capacity, and
+the re-fed token goes through an SSM layer's state a second time.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from ..models.model import decode_step, init_caches, prefill
+from ..tree import tree_leaves
 from .batcher import AdaptiveRequestBatcher
 
 
@@ -97,11 +100,11 @@ class ServeEngine:
             prompt = torch.from_numpy(req.prompt.astype(np.int64)).to(self.device)[None, :]
             _, caches_1, _ = prefill(self.params, self.cfg, {"inputs": prompt},
                                      cache_len=self.cache_len)
-            # Copy the single-row caches into this slot of the pool (a local
-            # layer's ring has as many slots in both).
-            for pool, one in zip(self.caches, caches_1):
-                for name in pool:
-                    pool[name][:, slot: slot + 1] = one[name]
+            # Copy the single-row caches into this slot of the pool, leaf for
+            # leaf (K/V, SSM state and conv tail, the shared block's K/V; a
+            # local layer's ring has as many slots in both).
+            for pool, one in zip(tree_leaves(self.caches), tree_leaves(caches_1)):
+                pool[:, slot: slot + 1] = one
             self.cur_pos[slot] = len(req.prompt)
             self.last_tok[slot, 0] = int(req.prompt[-1])
             self.live[slot] = True

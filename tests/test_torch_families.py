@@ -260,20 +260,38 @@ def test_engine_and_train_launcher_refuse_non_token_inputs(arch):
     ("mamba2-780m", "SSM layers"), ("zamba2-2.7b", "SSM layers, shared attention"),
 ])
 def test_check_supported_refuses_only_moe_ssm_and_shared_attention(arch, missing):
-    cfg = ModelConfig(**dataclasses.asdict(jget_config(arch, smoke=True)))
-    with pytest.raises(NotImplementedError, match=missing):
+    """The configs this check once refused (``missing`` names what they
+    need) now resolve, equal to the reference field for field, and pass
+    it; it refuses an unknown layer kind and a shared-attention layer
+    without its heads."""
+    needs = {"MoE": lambda c: c.n_experts > 0,
+             "SSM layers": lambda c: any(k.startswith("ssm") for k in c.layer_pattern),
+             "shared attention": lambda c: c.shared_attn_heads > 0}
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jget_config(arch, smoke=smoke))
+        assert all(needs[m](cfg) for m in missing.split(", "))
         check_supported(cfg)
-    with pytest.raises(KeyError, match="ported so far"):
-        get_config(arch)
+    cfg = ModelConfig(**dataclasses.asdict(jget_config(arch, smoke=True)))
+    with pytest.raises(ValueError, match="unknown layer kinds"):
+        check_supported(cfg.replace(layer_pattern=cfg.layer_pattern + ("mlstm",)))
+    with pytest.raises(ValueError, match="shared_attn_heads"):
+        check_supported(cfg.replace(layer_pattern=("ssm_shared_attn",), shared_attn_heads=0))
 
 
 def test_registry_holds_the_six_configs():
-    assert sorted(list_archs()) == sorted(ARCHS + ["llcysa-analytics-100m"])
-    for arch in ARCHS:
+    """The registry holds the reference's eleven configs, the six of this
+    file among them, each equal to the reference's field for field."""
+    from repro.models import list_archs as jlist_archs
+    assert list_archs() == jlist_archs(assigned_only=False)
+    assert set(ARCHS) < set(list_archs())
+    for arch in list_archs():
         for smoke in (False, True):
             cfg = get_config(arch, smoke=smoke)
             assert dataclasses.asdict(cfg) == dataclasses.asdict(jget_config(arch, smoke=smoke))
             check_supported(cfg)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("kw,sq,skv", [

@@ -44,11 +44,11 @@ from repro_torch.kernels.merge_intersect import intersect_sorted
 from repro_torch.checkpointing import CheckpointManager, restore_checkpoint, save_checkpoint
 from repro_torch.configs import ShapeConfig, llcysa
 from repro_torch.launch.steps import build_train_step
-from repro_torch.models import get_config
+from repro_torch.models import get_config, moe, ssm
 from repro_torch.models.attention import flash_attention, naive_attention
-from repro_torch.models.model import decode_step, init_params, prefill
+from repro_torch.models.model import decode_step, forward_train, init_params, prefill
 from repro_torch.training.optimizer import OptConfig, adamw_init
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 pytestmark = pytest.mark.gpu
 
@@ -998,3 +998,100 @@ def test_ring_cache_decode_on_the_card_matches_prefill_and_the_cpu(cuda, arch):
             steps.append(ld.cpu())
         logits[str(dev)] = torch.stack(steps)
     torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda):
+    """moonshot's MoE FFN at a small width in float32 (no TF32), at the
+    default capacity factor (tokens drop) and at 16: output and aux loss
+    within atol = rtol = 1e-4 of the CPU's (the CPU parity tolerance)."""
+    g = torch.Generator().manual_seed(4)
+    d, f, e = 64, 96, 8
+    p = {"router": torch.randn((d, e), generator=g) / 8,
+         "wi_gate": torch.randn((e, d, f), generator=g) / 8,
+         "wi_up": torch.randn((e, d, f), generator=g) / 8,
+         "wo": torch.randn((e, f, d), generator=g) / 10}
+    x = torch.randn((2, 40, d), generator=g) + 0.7
+    for cf in (1.25, 16.0):
+        out = {}
+        for dev in ("cpu", cuda):
+            y, aux = moe.moe_ffn({k: v.to(dev) for k, v in p.items()}, x.to(dev), top_k=2,
+                                 capacity_factor=cf, act="silu")
+            out[str(dev)] = (y.cpu(), aux.cpu())
+        for a, b in zip(out[str(cuda)], out["cpu"]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,chunk", [(600, 256), (256, 256), (5, 256)])
+def test_ssd_chunked_on_the_card_matches_the_cpu(cuda, s, chunk):
+    """mamba2's SSD at full head count (48 heads of 64, state 128): three
+    chunks with padding, one chunk, a sequence shorter than the chunk;
+    with an initial state. y and the final state: max |card - CPU| <=
+    1e-5 x max |CPU| for each (y reaches about 140 here, and each output
+    sums hundreds of float32 terms in another order on the card: an
+    element-wise atol of 1e-4 missed by 1.06e-4 on one of 1,843,200
+    elements on an H100)."""
+    g = torch.Generator().manual_seed(s)
+    b, h, p, n = 1, 48, 64, 128
+    x = torch.randn((b, s, h, p), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g) - 2)
+    a = -torch.exp(0.5 * torch.randn(h, generator=g))
+    bm, cm = torch.randn((b, s, n), generator=g), torch.randn((b, s, n), generator=g)
+    s0 = torch.randn((b, h, n, p), generator=g)
+    want = ssm.ssd_chunked(x, dt, a, bm, cm, chunk, initial_state=s0)
+    got = ssm.ssd_chunked(*(t.to(cuda) for t in (x, dt, a, bm, cm)), chunk,
+                          initial_state=s0.to(cuda))
+    for u, w in zip(got, want):
+        assert u.device == cuda and u.shape == w.shape
+        assert float((u.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_zamba2_decode_on_the_card_matches_prefill_and_the_cpu(cuda):
+    """zamba2's smoke() in float32: a prompt of 40 (two SSM chunks of 32,
+    the second padded), then decode steps through the SSM state, the conv
+    tail and the shared block's K/V; each step's logits within 2e-3 of a
+    prefill over the longer prompt, and within atol = rtol = 1e-4 of the
+    same decode on the CPU."""
+    cfg = get_config("zamba2-2.7b", smoke=True).replace(dtype="float32")
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 48)))
+    logits = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda x: x.to(dev), cpu_params)
+        x = toks.to(dev)
+        _, caches, _ = prefill(params, cfg, {"inputs": x[:, :40]}, cache_len=48)
+        steps = []
+        for t in range(40, 48):
+            ld, caches = decode_step(params, cfg, {"inputs": x[:, t:t + 1]}, caches,
+                                     torch.full((2,), t, device=dev))
+            lf, _, _ = prefill(params, cfg, {"inputs": x[:, :t + 1]})
+            assert float((ld - lf).abs().max()) < 2e-3
+            steps.append(ld.cpu())
+        logits[str(dev)] = torch.stack(steps)
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_moonshot_train_gradients_on_the_card_match_the_cpu(cuda):
+    """One train step's gradients of moonshot's smoke() in float32 (no
+    TF32), remat on: the loss and aux loss within rtol 1e-5, every
+    gradient leaf, the router's included, within atol 1e-5 and rtol 1e-4
+    of the CPU's (ten times the CPU parity tests' atol: cuBLAS and the CPU
+    sum in different orders)."""
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True).replace(dtype="float32")
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 65)))
+    out = {}
+    for dev in ("cpu", cuda):
+        flat, treedef = tree_flatten(tree_map(lambda x: x.to(dev), cpu_params))
+        leaves = [x.requires_grad_(True) for x in flat]
+        loss, metrics = forward_train(tree_unflatten(treedef, leaves), cfg,
+                                      {"inputs": toks[:, :-1].to(dev),
+                                       "targets": toks[:, 1:].to(dev)}, loss_chunk=32)
+        grads = torch.autograd.grad(loss, leaves)
+        out[str(dev)] = (float(loss.detach()), float(metrics["aux_loss"].detach()),
+                         [x.cpu() for x in grads])
+    (lg, ag, gg), (lc, ac, gc) = out[str(cuda)], out["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(ag, ac, rtol=1e-5)
+    assert ac > 0
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -232,12 +232,19 @@ def test_layers_match_reference():
 
 
 def test_registry_and_unported_configs():
+    """Every registered config resolves (the MoE and SSM ones included), an
+    unknown name raises, and the dense smoke config with experts gets the
+    MoE sub-dict in place of its dense MLP."""
     assert get_config("llcysa-analytics-100m").d_model == 768
     assert get_config("llcysa-analytics-100m", smoke=True) == llcysa.smoke()
-    with pytest.raises(KeyError, match="ported so far"):
-        get_config("mamba2-780m")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(CFG.replace(n_experts=4, top_k=2), torch.Generator(), device="cpu")
+    assert get_config("mamba2-780m").layer_pattern == ("ssm",)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba3-1b")
+    tp = init_params(CFG.replace(n_experts=4, top_k=2), torch.Generator(), device="cpu")
+    layer = tp["groups"][0]
+    assert "wi_gate" not in layer and set(layer["moe"]) == {"router", "wi_gate", "wi_up", "wo"}
+    assert layer["moe"]["router"].shape == (2, 64, 4)
+    assert layer["moe"]["router"].dtype == torch.float32
 
 
 def test_init_caches_and_cast(params):
