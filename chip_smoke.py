@@ -10,6 +10,11 @@ no result line):
              (one process per source, in parallel) into build/; among
              them merge_ranks_search.cu, merge_runs' earlier design, which
              the kernel rows time beside the merge-path kernel.
+  lint       repro_torch.analysis over src/repro_torch against the port's
+             baseline (analysis/baseline.json): one [lint] line with the
+             files scanned, the rules, fresh, baselined and stale findings
+             and the seconds; fails on any fresh finding, stale baseline
+             entry or parse error.
   reference  a small seeded workload through three paths that must agree
              bit for bit: the plane on the CPU (plain versions), the plane
              on the card (CUDA kernels), and a card plane started from the
@@ -539,6 +544,28 @@ def torch_equal(x, y):
     import torch
 
     return torch.equal(x.cpu(), y.cpu())
+
+
+def run_lint():
+    """The port's static analysis (repro_torch.analysis) over src/repro_torch
+    with the port's baseline. Prints one [lint] line and fails on any fresh
+    finding, stale baseline entry or parse error. Returns the line's
+    numbers."""
+    from repro_torch.analysis import (all_rules, collect_files, load_baseline, render_text,
+                                      run_analysis)
+    from repro_torch.analysis.engine import default_baseline_path
+
+    root = os.path.join(ROOT, "src", "repro_torch")
+    t0 = time.perf_counter()
+    res = run_analysis([root], baseline=load_baseline(default_baseline_path()))
+    secs = time.perf_counter() - t0
+    stats = dict(files=len(collect_files([root])), rules=[r.name for r in all_rules()],
+                 fresh=len(res.fresh), baselined=len(res.baselined),
+                 stale=len(res.stale_baseline), parse_errors=len(res.parse_errors),
+                 seconds=secs)
+    log("lint", json.dumps(stats))
+    check(not res.failed, "static analysis of src/repro_torch failed:\n" + render_text(res))
+    return stats
 
 
 def run_reference(seed, dev):
@@ -3416,13 +3443,14 @@ def main(argv=None):
     for line in build.build_log:
         log("build", line)
     try:
+        lint = run_lint()
         run_reference(args.seed, dev)
         report = run_main_path(args.seed, dev)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
-    report.update(device=kind, nvidia_smi=smi, seed=args.seed, torch=torch.__version__,
-                  device_ms_by=dict(Counter(DEVICE_MS_BY)))
+    report.update(lint=lint, device=kind, nvidia_smi=smi, seed=args.seed,
+                  torch=torch.__version__, device_ms_by=dict(Counter(DEVICE_MS_BY)))
     log("kernel", "device_ms taken by " + json.dumps(report["device_ms_by"]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

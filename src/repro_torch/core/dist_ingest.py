@@ -175,14 +175,19 @@ class _PlanePrograms:
         indexed field, and the stride between indexed fields (the
         tablet's row count in this chunk). Index and aggregate keys are
         synthesised here from the event rows."""
+        # The ONE sanctioned in-place write in the planes: the append writes
+        # only the live memtables and the telemetry row counter, which
+        # publish() never aliases — a snapshot seals a sorted COPY of the
+        # memtables (seal(): sorted keys and cols, n.clone()), so no
+        # published DistStore can see these writes.
         tab, ev_slot, ix_slot0, ix_stride = plan.unbind(0)
         rts, cols = rows[:, 0], rows[:, 1:]
         n = rts.shape[0]
-        st["ev_mem_k"].view(-1)[ev_slot] = rts
-        st["ev_mem_c"].view(-1, self.n_fields)[ev_slot] = cols
+        st["ev_mem_k"].view(-1)[ev_slot] = rts  # reprolint: disable=no-inplace-in-plane
+        st["ev_mem_c"].view(-1, self.n_fields)[ev_slot] = cols  # reprolint: disable=no-inplace-in-plane
         ones = torch.ones(n, dtype=torch.int32, device=rts.device)
-        st["ev_mem_n"].index_add_(0, tab, ones)
-        st["rows"].index_add_(0, tab, ones.to(torch.int64))
+        st["ev_mem_n"].index_add_(0, tab, ones)  # reprolint: disable=no-inplace-in-plane
+        st["rows"].index_add_(0, tab, ones.to(torch.int64))  # reprolint: disable=no-inplace-in-plane
         n_idx = len(self.indexed_fids)
         if not n_idx:
             return
@@ -193,11 +198,11 @@ class _PlanePrograms:
         ikeys = (fid << keypack.IX_FIELD_SHIFT) | (code << keypack.IX_VALUE_SHIFT) | rts64
         akeys = (fid << keypack.AG_FIELD_SHIFT) | (code << keypack.AG_VALUE_SHIFT) | bucket
         slots = (ix_slot0[None, :] + self._fid_step * ix_stride[None, :]).reshape(-1)
-        st["ix_mem_k"].view(-1)[slots] = ikeys.reshape(-1)
-        st["ag_mem_k"].view(-1)[slots] = akeys.reshape(-1)
-        st["ag_mem_c"].view(-1)[slots] = 1
-        st["ix_mem_n"].index_add_(0, tab, ones * n_idx)
-        st["ag_mem_n"].index_add_(0, tab, ones * n_idx)
+        st["ix_mem_k"].view(-1)[slots] = ikeys.reshape(-1)  # reprolint: disable=no-inplace-in-plane
+        st["ag_mem_k"].view(-1)[slots] = akeys.reshape(-1)  # reprolint: disable=no-inplace-in-plane
+        st["ag_mem_c"].view(-1)[slots] = 1  # reprolint: disable=no-inplace-in-plane
+        st["ix_mem_n"].index_add_(0, tab, ones * n_idx)  # reprolint: disable=no-inplace-in-plane
+        st["ag_mem_n"].index_add_(0, tab, ones * n_idx)  # reprolint: disable=no-inplace-in-plane
 
     def minor(self, st: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Flush every tablet's memtable that holds rows into its next free
@@ -395,7 +400,8 @@ class TabletGroup:
         if self._runs_host.max() > 0:
             self._gen["runs"] += 1
             self._gen["base"] += 1
-        self._runs_host[:] = 0
+        # A host numpy mirror, never part of a snapshot.
+        self._runs_host[:] = 0  # reprolint: disable=no-inplace-in-plane
 
     def _run_fold_one(self) -> None:  # holds: lock
         self.state.update(self.programs.fold_one(self.state))

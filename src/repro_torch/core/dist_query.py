@@ -684,11 +684,13 @@ class DistQueryProcessor:
     def dictionaries(self):
         return self.store.dictionaries
 
+    # reprolint: hot-path
     def agg_count(self, field: str, value: str, t_start: int, t_stop: int) -> int:
         """Occurrences of field=value in the bucketed time range, from the
         device's aggregate tablets at every level — the planner's d_i."""
         return self._agg_count_on(self._sync(), field, value, t_start, t_stop)
 
+    # reprolint: hot-path — planning reads densities per condition per query
     def _agg_count_on(self, d: DistStore, field: str, value: str,
                       t_start: int, t_stop: int) -> int:
         """agg_count against one pinned snapshot, memoized in it (a
@@ -715,8 +717,9 @@ class DistQueryProcessor:
         fid = self.store.schema.field_id(field)
         b0 = int(t_start) // d.agg_bucket_s
         b1 = int(t_stop) // d.agg_bucket_s
-        lo = int(keypack.pack_agg_key(fid, code, b0))
-        hi = int(keypack.pack_agg_key(fid, code, b1)) + 1
+        # keypack packs host-side numpy scalars — no device value, no sync.
+        lo = int(keypack.pack_agg_key(fid, code, b0))  # reprolint: disable=no-sync-in-hot-path
+        hi = int(keypack.pack_agg_key(fid, code, b1)) + 1  # reprolint: disable=no-sync-in-hot-path
         with span("query.density", cat="query", field=field, value=value) as sp:
             out = int(sp.fence(density_step(d, lo, hi)))
         d.density_cache[ckey] = out
@@ -868,6 +871,7 @@ class DistQueryProcessor:
         return AggregateResult(grouping, np.flatnonzero(live).astype(np.int64), aggs[live],
                                cnts[live])
 
+    # reprolint: hot-path — one-shot aggregate turns run through here
     def aggregate_range(self, spec: AggregateSpec, tree, t0: int, t1: int,
                         use_index: bool = True, stats: Optional[QueryStats] = None,
                         dist: Optional[DistStore] = None) -> AggregateResult:
@@ -901,6 +905,7 @@ class DistQueryProcessor:
         aggs, cnts = _combine_level_aggs(parts, grouping.spec.op)
         return self._materialize_agg(grouping, aggs, cnts)
 
+    # reprolint: hot-path — aggregate_range's per-group device executor
     def _agg_range_on(self, d: DistStore, plan: QueryPlan, grouping: ResolvedGrouping,
                       tree, t0: int, t1: int, program, value_table,
                       stats: Optional[QueryStats] = None):
@@ -921,8 +926,10 @@ class DistQueryProcessor:
             if not n_trunc:
                 return aggs, cnts
         with span("query.aggregate_scan", cat="query") as sp:
-            aggs, cnts = aggregate_step(d, program, value_table, grouping,
-                                        int(keypack.rev_ts(t1)), int(keypack.rev_ts(t0)) + 1)
+            # keypack packs host-side numpy scalars — no device value, no sync.
+            rts_lo = int(keypack.rev_ts(t1))  # reprolint: disable=no-sync-in-hot-path
+            rts_hi = int(keypack.rev_ts(t0)) + 1  # reprolint: disable=no-sync-in-hot-path
+            aggs, cnts = aggregate_step(d, program, value_table, grouping, rts_lo, rts_hi)
             sp.fence(cnts)
         return aggs, cnts
 
