@@ -26,7 +26,7 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  ten paths at full size, each with every kernel launch count
+  main path  eleven paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -245,6 +245,30 @@ no result line):
                 three chunks of 256, the last padded), 16 greedy decode
                 steps, each within 2e-3 of a prefill over the tokens so
                 far. No kernel of the port's own runs on path 10.
+            11. the distribution layer. 11a: a one-rank NCCL process group
+                (destroyed after) and a (data=1, model=1) DeviceMesh of the
+                card; llcysa-analytics-100m at full width and depth through
+                launch/steps.py's mesh builders in float32 from a seeded
+                init: two train steps of 4 x 4,096 seeded tokens with ZeRO-1
+                and sequence parallelism, one prefill of 8 of path 7's
+                prompts into caches of 256, and 16 greedy decode steps,
+                each against the meshless step on the same parameters and
+                inputs (loss and grad norm within rtol 1e-5, logits within
+                rtol 1e-5 / atol 1e-5, greedy tokens equal); then each step
+                in bf16 with the mesh and without: ms with host dispatch
+                (the median of 3 calls, 16 for decode) and device ms (one
+                call in a profiler window), and their difference, DTensor's
+                overhead on one rank. 11b, beside 11a in a subprocess with
+                CUDA hidden: launch/dryrun.py's gemma2-9b train_4k and
+                moonshot-v1-16b-a3b decode_32k on the single-pod mesh (256
+                ranks) and mamba2-780m long_500k on the multi-pod mesh (512),
+                traced on a fake process group under FakeTensorMode: the
+                per-device peak, FLOPs, HBM bytes and collective bytes by
+                op, the three roofline terms on the H100 data sheet's rates
+                and the bottleneck; each cell's parameter bytes per device
+                must equal its spec tree's shards', and the train cell must
+                have collectives. No kernel of the port's own runs on path
+                11.
              Paths 1-3 also run the Cmp and Match filter nodes:
              domain = A AND bytes_out < 1000 on all four schemes and on
              path 3 with spec (a), Match(domain, "d0000") (the ten most
@@ -2909,6 +2933,297 @@ def run_moe_ssm(seed, dev, prompts):
     return report
 
 
+MESH_TRAIN_SHAPE = (4, 4096)  # path 11a: global batch x sequence
+MESH_PREFILL_SLOTS = 8
+MESH_CACHE_LEN = 256
+MESH_DECODE_STEPS = 16
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-5
+MESH_TIMED_CALLS = 3
+# A parameter's update may differ from the meshless one by more than this
+# share of the step's learning rate only where Adam's first steps flip
+# lr x sign(g) for a gradient within rounding of zero: on at most
+# MESH_UPDATE_OFF_SHARE of the elements.
+MESH_UPDATE_TOL, MESH_UPDATE_OFF_SHARE = 0.1, 1e-3
+# Path 11b's cells on the production meshes, traced on a fake process group.
+DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single_pod"),
+                ("moonshot-v1-16b-a3b", "decode_32k", "single_pod"),
+                ("mamba2-780m", "long_500k", "multi_pod"))
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch.dryrun import MESH_RANKS, fake_world, run_cell
+for arch, shape, mesh in json.loads(sys.argv[1]):
+    with fake_world(MESH_RANKS[mesh]):
+        rec = run_cell(arch, shape, mesh)
+    print("CELL " + json.dumps(rec), flush=True)
+"""
+
+
+def start_dryrun():
+    """Path 11b in a subprocess on the host (CUDA hidden from it), run
+    beside 11a: launch/dryrun.py's cells on fake process groups of 256 and
+    512 ranks under FakeTensorMode."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_dryrun(proc, smi):
+    """Path 11b's records: per cell the per-device peak, FLOPs, bytes,
+    collective bytes by op, the three roofline terms and the bottleneck;
+    each cell's parameter bytes per device must equal the spec tree's
+    local shards', and the train cell must have collectives."""
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"path 11b: the dry-run failed: {err[-2000:]}")
+    cells = [json.loads(l[len("CELL "):]) for l in out.splitlines() if l.startswith("CELL ")]
+    check(len(cells) == len(DRYRUN_CELLS), f"path 11b: {len(cells)} of {len(DRYRUN_CELLS)} cells")
+    rows = []
+    for rec in cells:
+        name = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+        check(rec["param_bytes_per_device"] == rec["param_bytes_from_specs"],
+              f"path 11b {name}: {rec['param_bytes_per_device']} parameter bytes per device, "
+              f"the spec tree's shards hold {rec['param_bytes_from_specs']}")
+        if rec["kind"] == "train":
+            check(rec["collectives"]["total_bytes"] > 0, f"path 11b {name}: no collective")
+        r = rec["roofline"]
+        row = {"cell": name, "n_chips": rec["n_chips"], "mesh_shape": rec["mesh_shape"],
+               "peak_gib": rec["memory"]["peak_bytes"] / 2**30,
+               "argument_gib": rec["memory"]["argument_bytes"] / 2**30,
+               "flops_per_device": rec["cost"]["flops_per_device"],
+               "bytes_per_device": rec["cost"]["bytes_per_device"],
+               "bytes_lower_per_device": rec["cost"]["bytes_lower_per_device"],
+               "collective_bytes_by_op": rec["collectives"]["bytes_by_op"],
+               "collective_count_by_op": rec["collectives"]["count_by_op"],
+               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+               "memory_lower_s": r["memory_lower_s"], "collective_s": r["collective_s"],
+               "bottleneck": r["bottleneck"],
+               "model_flops_per_device": rec["model_flops_per_device"],
+               "useful_flop_ratio": rec["useful_flop_ratio"], "trace_s": rec["trace_s"],
+               "param_bytes_per_device": rec["param_bytes_per_device"],
+               "rates": "H100 SXM data sheet (launch/cost_analysis.py)", "card": smi}
+        rows.append(row)
+        log("mesh", "11b " + json.dumps(row))
+    return rows
+
+
+def opt_state_vs_plain(o_mesh, o_plain, params_mesh, params_plain, lr):
+    """Path 11a's check of one train step's optimizer state and update:
+    Adam's counts; the worst |mesh - plain| of m and of sqrt(v) (both
+    continuous in the gradient) as a share of rtol 1e-5 x (|plain| + the
+    leaf's max |plain|), at most 1 where within tolerance; and the share of
+    parameter elements whose update (after - before) differs from the
+    meshless one by more than MESH_UPDATE_TOL x lr (a skipped or wrong
+    update is off by about lr nearly everywhere)."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def worst(got, want):
+        w = 0.0
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            tol = MESH_RTOL * (b.abs() + b.abs().max())
+            w = max(w, float(((full(a) - b).abs() / tol.clamp_min(1e-30)).max()))
+        return w
+
+    (after_m, before_m), (after_p, before_p) = params_mesh, params_plain
+    off = n = 0
+    for a, b, ap, bp in zip(*(tree_leaves(t) for t in (after_m, before_m, after_p, before_p))):
+        d = (full(a) - full(b)) - (ap - bp)
+        off += int((d.abs() > MESH_UPDATE_TOL * lr).sum())
+        n += d.numel()
+    return {"step": (int(o_plain["step"]), int(full(o_mesh["step"]))),
+            "m_worst": worst(o_mesh["m"], o_plain["m"]),
+            "sqrt_v_worst": worst(tree_map(lambda t: full(t).sqrt(), o_mesh["v"]),
+                                  tree_map(torch.sqrt, o_plain["v"])),
+            "update_off_share": off / n}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _timed(fn, calls=MESH_TIMED_CALLS):
+    """fn()'s ms with host dispatch (the median of ``calls`` synchronized
+    calls after a warm-up) and its device ms (one call in a profiler
+    window, every CUDA event's time). Returns (ms, device ms, last
+    result)."""
+    import statistics
+
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out, dev_ms, n_events, _ = profiled_breakdown(fn)
+    return statistics.median(walls), dev_ms, out
+
+
+def run_mesh_steps(seed, dev, prompts, smi):
+    """Path 11a: llcysa-analytics-100m at full width and depth through
+    launch/steps.py's builders on a (data=1, model=1) DeviceMesh of the one
+    card (a one-rank NCCL group): two train steps of 4 x 4,096 tokens with
+    ZeRO-1 and sequence parallelism, a prefill of 8 of path 7's prompts and
+    16 greedy decode steps, each held in float32 to the meshless step from
+    the same parameters and batch (loss and grad norm within rtol 1e-5,
+    logits within rtol 1e-5 / atol 1e-5, greedy tokens equal), then timed
+    in bf16 with the mesh and without."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs import llcysa as L
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.steps import build_step, build_train_step
+    from repro_torch.models.model import cast_params, decode_step, init_params, prefill
+    from repro_torch.training.optimizer import OptConfig, adamw_init
+
+    cfg = L.CONFIG
+    batch_n, seq = MESH_TRAIN_SHAPE
+    report = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "vocab": cfg.vocab_size, "params": cfg.param_count()},
+              "train_shape": {"global_batch": batch_n, "seq_len": seq},
+              "prefill": {"slots": MESH_PREFILL_SLOTS, "prompt": int(prompts.shape[1]),
+                          "cache_len": MESH_CACHE_LEN}, "decode_steps": MESH_DECODE_STEPS,
+              "card": smi}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_dev_mesh(1, 1, device_type=dev.type)
+        report["mesh"] = dict(zip(mesh.mesh_dim_names, map(int, mesh.shape)))
+        g = torch.Generator(device=dev).manual_seed(seed + 11)
+        raw = torch.randint(0, cfg.vocab_size, (batch_n, seq + 1), generator=g, device=dev,
+                            dtype=torch.int32)
+        batch = {"inputs": raw[:, :-1], "targets": raw[:, 1:]}
+        shape = ShapeConfig("train_4k", seq, batch_n, "train")
+        opt_cfg = OptConfig()
+        x = torch.from_numpy(prompts[:MESH_PREFILL_SLOTS].astype(np.int32)).to(dev)
+        p_shape = ShapeConfig("prefill", MESH_CACHE_LEN, MESH_PREFILL_SLOTS, "prefill")
+        d_shape = ShapeConfig("decode", MESH_CACHE_LEN, MESH_PREFILL_SLOTS, "decode")
+
+        # float32: the mesh's steps against the meshless ones.
+        cfg32 = cfg.replace(dtype="float32")
+        params = init_params(cfg32, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        plain = build_train_step(cfg32, shape, opt_cfg, device=dev)
+        meshed = build_train_step(cfg32, shape, opt_cfg, mesh=mesh, seq_parallel=True)
+        p1, o1 = params, adamw_init(params, opt_cfg)
+        p2, o2 = params, adamw_init(params, opt_cfg)
+        train = []
+        for i in range(2):
+            q1, q2 = p1, p2
+            p1, o1, m1 = plain(p1, o1, batch)
+            p2, o2, m2 = meshed(p2, o2, batch)
+            row = {k: (float(m1[k]), float(m2[k])) for k in ("loss", "grad_norm")}
+            for k, (a, b) in row.items():
+                check(abs(a - b) <= MESH_RTOL * abs(a), f"path 11a train step {i + 1}: {k} "
+                      f"{b} on the mesh, {a} without (rtol {MESH_RTOL})")
+            row.update(opt_state_vs_plain(o2, o1, (p2, q2), (p1, q1),
+                                          float(m1["lr"])))
+            check(row["step"][0] == row["step"][1] == i + 1,
+                  f"path 11a train step {i + 1}: Adam's count {row['step']}")
+            check(max(row["m_worst"], row["sqrt_v_worst"]) <= 1.0,
+                  f"path 11a train step {i + 1}: Adam's m or sqrt(v) differ past rtol "
+                  f"{MESH_RTOL} (worst share of the tolerance {row['m_worst']}, "
+                  f"{row['sqrt_v_worst']})")
+            check(row["update_off_share"] <= MESH_UPDATE_OFF_SHARE,
+                  f"path 11a train step {i + 1}: {row['update_off_share']} of the parameters "
+                  f"took another update on the mesh")
+            train.append(row)
+        report["float32_train"] = train
+        del p1, o1, p2, o2, plain, meshed
+        lg1, c1, lp1 = prefill(params, cfg32, {"inputs": x}, cache_len=MESH_CACHE_LEN)
+        lg2, c2, lp2 = build_step(cfg32, p_shape, mesh)(params, {"inputs": x})
+        lg2 = lg2.full_tensor()
+        errs = [float((lg1 - lg2).abs().max())]
+        check(torch.allclose(lg2, lg1, rtol=MESH_RTOL, atol=MESH_ATOL),
+              f"path 11a prefill: logits differ by {errs[0]} (rtol/atol {MESH_RTOL})")
+        step = build_step(cfg32, d_shape, mesh)
+        t1 = t2 = lg1.argmax(-1).to(torch.int32)[:, None]
+        pos1 = pos2 = lp1 + 1
+        tokens = []
+        for i in range(MESH_DECODE_STEPS):
+            d1, c1 = decode_step(params, cfg32, {"inputs": t1}, c1, pos1)
+            d2, c2 = step(params, {"inputs": t2}, c2, pos2)
+            d2 = d2.full_tensor()
+            errs.append(float((d1 - d2).abs().max()))
+            check(torch.allclose(d2, d1, rtol=MESH_RTOL, atol=MESH_ATOL),
+                  f"path 11a decode step {i + 1}: logits differ by {errs[-1]}")
+            t1, t2 = d1.argmax(-1).to(torch.int32)[:, None], d2.argmax(-1).to(torch.int32)[:, None]
+            check(torch.equal(t1, t2), f"path 11a decode step {i + 1}: greedy tokens differ")
+            tokens.append(t1[:, 0].tolist())
+            pos1, pos2 = pos1 + 1, pos2 + 1
+        report["float32_logits_max_abs_err"] = max(errs)
+        report["greedy_tokens"] = tokens
+        log("mesh", f"11a float32: train {json.dumps(train)}, logits max |diff| "
+            f"{max(errs):.3e} over the prefill and {MESH_DECODE_STEPS} decode steps, "
+            "greedy tokens equal")
+        del c1, c2, step
+
+        # bf16: each step timed with the mesh and without.
+        p16 = cast_params(params, torch.bfloat16)
+        del params
+        times = {}
+        for name, on_mesh in (("meshless", False), ("mesh", True)):
+            if on_mesh:
+                tstep = build_train_step(cfg, shape, opt_cfg, mesh=mesh, seq_parallel=True)
+                pstep = build_step(cfg, p_shape, mesh)
+                dstep = build_step(cfg, d_shape, mesh)
+            else:
+                tstep = build_train_step(cfg, shape, opt_cfg, device=dev)
+                pstep = lambda p, b: prefill(p, cfg, b, cache_len=MESH_CACHE_LEN)  # noqa: E731
+                dstep = lambda p, b, c, q: decode_step(p, cfg, b, c, q)  # noqa: E731
+            pt, opt = p16, adamw_init(p16, opt_cfg)
+            if on_mesh:  # laid out once, as a run's steps after its first find them
+                pt = distribute_tree(p16, tstep.in_shardings[0], mesh)
+                opt = distribute_tree(opt, tstep.in_shardings[1], mesh)
+            t_ms, t_dev, _ = _timed(lambda: tstep(pt, opt, batch))
+            p_ms, p_dev, (lg, caches, lp) = _timed(lambda: pstep(pt, {"inputs": x}))
+            tok = (lg.full_tensor() if hasattr(lg, "full_tensor") else lg).argmax(-1)
+            tok = tok.to(torch.int32)[:, None]
+            d_ms, d_dev, _ = _timed(lambda: dstep(pt, {"inputs": tok}, caches, lp + 1),
+                                    calls=MESH_DECODE_STEPS)
+            times[name] = {"train_step_ms": t_ms, "train_step_device_ms": t_dev,
+                           "prefill_ms": p_ms, "prefill_device_ms": p_dev,
+                           "decode_step_ms": d_ms, "decode_step_device_ms": d_dev}
+            log("mesh", f"11a bf16 {name}: " + json.dumps(times[name]) + f" ({smi})")
+            del tstep, pstep, dstep, pt, opt, caches
+        report["bf16"] = times
+        report["dtensor_overhead_ms"] = {k: times["mesh"][k] - times["meshless"][k]
+                                         for k in times["mesh"]}
+        log("mesh", "11a DTensor's overhead on one rank (mesh minus meshless, ms): "
+            + json.dumps(report["dtensor_overhead_ms"]))
+    finally:
+        dist.destroy_process_group()
+    return report
+
+
+def run_mesh(seed, dev, prompts, smi):
+    """Path 11: the distribution layer. 11b (the dry-run, on the host) runs
+    in a subprocess beside 11a (the mesh steps on the card)."""
+    proc = start_dryrun()
+    try:
+        report = run_mesh_steps(seed, dev, prompts, smi)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    report["dryrun"] = finish_dryrun(proc, smi)
+    return report
+
+
 def host_major_inputs(store, seed):
     """merge_runs' inputs at the host store's major shape, from index
     tablet 0 of a path-6 store: a first major's K = max_runs + 1 runs of
@@ -2935,7 +3250,7 @@ def host_major_inputs(store, seed):
     return inputs
 
 
-def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None):
+def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
     import numpy as np
     import torch
     from repro_torch import obs
@@ -3205,9 +3520,18 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None):
     launches_10 = read_launches()
     log("launches", "path 10 (LM MoE/SSM; no kernel of their own): "
         + json.dumps(launches_10))
+    # Path 11: the distribution layer; llcysa-analytics-100m's steps on a
+    # (1, 1) mesh of the card, and the production-mesh dry-run on the host.
+    zero_launches()
+    t0 = time.perf_counter()
+    report["mesh"] = run_mesh(seed, dev, prompts, smi)
+    report["mesh"]["path_seconds"] = time.perf_counter() - t0
+    launches_11 = read_launches()
+    log("launches", "path 11 (mesh steps and dry-run; no kernel of their own): "
+        + json.dumps(launches_11))
     del prompts
     paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7,
-             launches_8, launches_9, launches_10)
+             launches_8, launches_9, launches_10, launches_11)
     launches = {k: sum(p[k] for p in paths) for k in launches_1}
     report["launches"] = {"total": launches,
                           **{f"path_{i}": p for i, p in enumerate(paths, start=1)}}
@@ -3445,7 +3769,7 @@ def main(argv=None):
     try:
         lint = run_lint()
         run_reference(args.seed, dev)
-        report = run_main_path(args.seed, dev)
+        report = run_main_path(args.seed, dev, smi=smi)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

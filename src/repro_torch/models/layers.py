@@ -13,12 +13,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import ctx as dist_ctx
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with float32 accumulation and the (1 + scale)
     parameterization."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if hasattr(xf, "device_mesh"):
+        # A DTensor whose last dim may shard over 'model' (the SSM's
+        # d_inner): a partial sum, all-reduced, then the division.
+        var = dist_ctx.whole_on_model(torch.sum(xf * xf, dim=-1, keepdim=True)) / x.shape[-1]
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
 
@@ -68,7 +75,9 @@ def mlp_plain(x, wi, wo, act: str):
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool) -> torch.Tensor:
     """Token embedding lookup; the gemma family scales by sqrt(d_model)."""
-    x = table[tokens]
+    # A DTensor table (sharded over the vocabulary) takes F.embedding, which
+    # DTensor partitions; the single-device path indexes, as it did.
+    x = F.embedding(tokens, table) if hasattr(table, "device_mesh") else table[tokens]
     if scale:
         # sqrt(d_model) rounded to the table's dtype, as the reference does,
         # and kept on the host (no copy to the card).

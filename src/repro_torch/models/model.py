@@ -32,8 +32,16 @@ layers, min(window, cache length) for local layers (a ring: position p
 sits in slot p % L) and the image tokens for cross layers. SSM layers
 hold {"state" (n_groups, B, H, N, P), "conv" (n_groups, B, d_conv - 1,
 conv_dim)}, both float32, and an ssm_shared_attn layer also its own
-application's {"sa": {"k", "v"}}. The port has one GPU and no mesh, so
-the reference's sharding constraints are gone.
+application's {"sa": {"k", "v"}}.
+
+On a mesh (a step of launch/steps.py built with one) the same code runs
+on DTensors: the reference's ``constrain`` hooks pin the residual stream
+("activations", at each group's start) and the loss's logits chunks
+("logits_chunk"); the blocks DTensor cannot partition by itself run per
+shard (models/sharded.py); each block's output is laid out as the
+residual stream before it is added (the tensor-parallel all-reduce);
+and the cross-entropy takes the vocab-parallel form. On plain tensors
+every one of these is the single-device code.
 """
 from __future__ import annotations
 
@@ -47,10 +55,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
+from ..distributed import ctx as dist_ctx
 from ..tree import tree_flatten, tree_map, tree_unflatten
-from .attention import decode_attention, flash_attention, ring_slot_positions
+from .attention import ring_slot_positions
 from .layers import apply_rope, embed, mlp_glu, mlp_plain, rms_norm, softcap, unembed
 from .moe import init_moe_params, moe_ffn
+from .sharded import decode, fill_cache, flash, gather_seq, like, write_token
 from .ssm import init_ssm_params, spec_from_cfg, ssm_decode_step, ssm_forward
 
 PyTree = Any
@@ -178,7 +188,7 @@ def _attn_block(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions
     b, s, _ = h.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     attn_kw = dict(softcap_val=cfg.attn_softcap, scale=cfg.attn_scale)
-    x = rms_norm(h, p["norm"], cfg.norm_eps)
+    x = gather_seq(rms_norm(h, p["norm"], cfg.norm_eps))
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
@@ -205,9 +215,9 @@ def _attn_block(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions
             k = rms_norm(k, p["k_norm"], cfg.norm_eps)
         if mode == "decode":
             every = torch.full((b,), k.shape[1] - 1, dtype=torch.int64, device=h.device)
-            out = decode_attention(q, k, v, every, **attn_kw)
+            out = decode(q, k, v, every, **attn_kw)
         else:
-            out = flash_attention(q, k, v, causal=False, **attn_kw)
+            out = flash(q, k, v, causal=False, **attn_kw)
     else:
         kx, vx = x @ p["wk"], x @ p["wv"]
         if cfg.qkv_bias:
@@ -219,7 +229,7 @@ def _attn_block(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions
         q = apply_rope(q, positions, theta)
         k_new = apply_rope(k_new, positions, theta)
         if mode in ("train", "prefill"):
-            out = flash_attention(q, k_new, v_new, causal=True, window=window, **attn_kw)
+            out = flash(q, k_new, v_new, causal=True, window=window, **attn_kw)
         if mode == "train":
             new_cache = None
         elif mode == "prefill":
@@ -227,27 +237,15 @@ def _attn_block(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions
             # position t in slot t % slots: a longer prompt leaves its last
             # tokens there. A global layer's cache must hold the prompt.
             slots = min(window, cache_len) if local else cache_len
-            if not local and s > cache_len:
-                raise ValueError(f"prompt of {s} tokens exceeds cache_len {cache_len}")
-            kc = k_new.new_zeros((b, slots, nkv, hd))
-            vc = v_new.new_zeros((b, slots, nkv, hd))
-            if s <= slots:
-                kc[:, :s] = k_new
-                vc[:, :s] = v_new
-            else:
-                idx = torch.arange(s - slots, s, device=h.device) % slots
-                kc[:, idx] = k_new[:, s - slots:]
-                vc[:, idx] = v_new[:, s - slots:]
-            new_cache = {"k": kc, "v": vc}
+            new_cache = {"k": fill_cache(k_new, slots, local),
+                         "v": fill_cache(v_new, slots, local)}
         else:  # decode
             slots = cache["k"].shape[1]
-            bidx = torch.arange(b, device=h.device)
             slot = cur_pos % slots if local else cur_pos
-            cache["k"][bidx, slot] = k_new[:, 0]
-            cache["v"][bidx, slot] = v_new[:, 0]
+            write_token(cache, k_new, v_new, slot)
             slot_pos = ring_slot_positions(cur_pos, slots) if local else None
-            out = decode_attention(q, cache["k"], cache["v"], cur_pos, window=window,
-                                   slot_positions=slot_pos, **attn_kw)
+            out = decode(q, cache["k"], cache["v"], cur_pos, window=window,
+                         slot_positions=slot_pos, **attn_kw)
             new_cache = cache
 
     out = out.reshape(b, s, nh * hd) @ p["wo"]
@@ -260,7 +258,7 @@ def _attn_block(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions
 
 def _mlp_block(p: Dict, h, cfg: ModelConfig, kind: str):
     """Returns (mlp_out, the MoE's aux loss, None for a dense MLP)."""
-    x = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+    x = gather_seq(rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     aux = None
     if cfg.n_experts:
         out, aux = moe_ffn(p["moe"], x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
@@ -286,29 +284,23 @@ def _shared_attn_block(sp: Dict, h, cfg: ModelConfig, *, mode: str, positions, c
     b, s, d = h.shape
     nh, nkv = cfg.shared_attn_heads, cfg.shared_attn_kv_heads
     hd = d // nh
-    x = rms_norm(h, sp["norm"], cfg.norm_eps)
+    x = gather_seq(rms_norm(h, sp["norm"], cfg.norm_eps))
     q = apply_rope((x @ sp["wq"]).reshape(b, s, nh, hd), positions, cfg.rope_theta)
     k_new = apply_rope((x @ sp["wk"]).reshape(b, s, nkv, hd), positions, cfg.rope_theta)
     v_new = (x @ sp["wv"]).reshape(b, s, nkv, hd)
     new_cache = None
     if mode in ("train", "prefill"):
-        out = flash_attention(q, k_new, v_new, causal=True)
+        out = flash(q, k_new, v_new, causal=True)
     if mode == "prefill":
-        if s > cache_len:
-            raise ValueError(f"prompt of {s} tokens exceeds cache_len {cache_len}")
-        new_cache = {"k": k_new.new_zeros((b, cache_len, nkv, hd)),
-                     "v": v_new.new_zeros((b, cache_len, nkv, hd))}
-        new_cache["k"][:, :s] = k_new
-        new_cache["v"][:, :s] = v_new
+        new_cache = {"k": fill_cache(k_new, cache_len, False),
+                     "v": fill_cache(v_new, cache_len, False)}
     elif mode == "decode":
-        bidx = torch.arange(b, device=h.device)
-        cache["k"][bidx, cur_pos] = k_new[:, 0]
-        cache["v"][bidx, cur_pos] = v_new[:, 0]
-        out = decode_attention(q, cache["k"], cache["v"], cur_pos)
+        write_token(cache, k_new, v_new, cur_pos)
+        out = decode(q, cache["k"], cache["v"], cur_pos)
         new_cache = cache
-    h = h + out.reshape(b, s, nh * hd) @ sp["wo"]
-    x2 = rms_norm(h, sp["mlp_norm"], cfg.norm_eps)
-    return h + mlp_glu(x2, sp["wi_gate"], sp["wi_up"], sp["wo_mlp"], cfg.act), new_cache
+    h = h + like(out.reshape(b, s, nh * hd) @ sp["wo"], h)
+    x2 = gather_seq(rms_norm(h, sp["mlp_norm"], cfg.norm_eps))
+    return h + like(mlp_glu(x2, sp["wi_gate"], sp["wi_up"], sp["wo_mlp"], cfg.act), h), new_cache
 
 
 def _ssm_layer(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions, cache,
@@ -318,17 +310,17 @@ def _ssm_layer(p: Dict, h, cfg: ModelConfig, kind: str, *, mode: str, positions,
     cache); at decode the state, conv tail and shared K/V are written
     into ``cache`` in place."""
     spec = spec_from_cfg(cfg)
-    x = rms_norm(h, p["norm"], cfg.norm_eps)
+    x = gather_seq(rms_norm(h, p["norm"], cfg.norm_eps))
     new_cache = None
     if mode == "train":
-        h = h + ssm_forward(p["ssm"], x, spec)
+        h = h + like(ssm_forward(p["ssm"], x, spec), h)
     elif mode == "prefill":
         out, (state, conv) = ssm_forward(p["ssm"], x, spec, return_state=True)
-        h = h + out
+        h = h + like(out, h)
         new_cache = {"state": state, "conv": conv}
     else:
         out, (state, conv) = ssm_decode_step(p["ssm"], x, (cache["state"], cache["conv"]), spec)
-        h = h + out
+        h = h + like(out, h)
         cache["state"].copy_(state)
         cache["conv"].copy_(conv)
         new_cache = cache
@@ -352,9 +344,9 @@ def _layer(p: Dict, h, cfg: ModelConfig, kind: str, *, shared=None, vision_state
     if kind in SSM_KINDS:
         return (*_ssm_layer(p, h, cfg, kind, shared=shared, **kw), None)
     attn_out, new_cache = _attn_block(p, h, cfg, kind, vision_states=vision_states, **kw)
-    h = h + attn_out
+    h = h + like(attn_out, h)
     mlp_out, aux = _mlp_block(p, h, cfg, kind)
-    return h + mlp_out, new_cache, aux
+    return h + like(mlp_out, h), new_cache, aux
 
 
 def _train_layer(h, positions, vision_states, *leaves, layer_def, shared_def, cfg: ModelConfig,
@@ -403,6 +395,7 @@ def _stack(params: PyTree, cfg: ModelConfig, h, *, mode: str, positions, caches,
     new = [[] for _ in pattern]
     aux = None
     for g in range(n):
+        h = dist_ctx.constrain("activations", h)
         for pos, kind in enumerate(pattern):
             layer = per_pos[pos][g]
             if mode == "train":
@@ -439,17 +432,28 @@ def _inputs_to_h(params, cfg: ModelConfig, batch: Dict):
 
 
 def _logits(params, cfg: ModelConfig, h):
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = gather_seq(rms_norm(h, params["final_norm"], cfg.norm_eps))
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return softcap(unembed(h, table, cfg.tie_embeddings).float(), cfg.final_softcap)
 
 
 def _xent_chunk(hh, tt, table, *, cfg: ModelConfig):
     """Summed NLL and counted targets of one sequence chunk."""
-    logits = softcap(unembed(hh, table, cfg.tie_embeddings).float(), cfg.final_softcap)
-    lse = torch.logsumexp(logits, dim=-1)
+    logits = dist_ctx.constrain("logits_chunk", unembed(hh, table, cfg.tie_embeddings).float())
+    logits = softcap(logits, cfg.final_softcap)
     tgt = tt.clamp(0, cfg.vocab_size - 1).long()
-    picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    if hasattr(logits, "device_mesh"):
+        # The vocab-parallel form (Megatron's): the vocab may be sharded, so
+        # the max, the sum of exponentials and the picked logit reduce over
+        # it as partial sums (no gather of the chunk's logits).
+        whole = dist_ctx.whole_on_model
+        top = whole(logits.detach().amax(dim=-1, keepdim=True))
+        lse = torch.log(whole(torch.exp(logits - top).sum(dim=-1))) + top[..., 0]
+        hit = tgt[..., None] == torch.arange(cfg.vocab_size, device=tgt.device)
+        picked = whole((logits * hit).sum(dim=-1))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
     mask = (tt >= 0).float()
     return ((lse - picked) * mask).sum(), mask.sum()
 
@@ -461,7 +465,7 @@ def chunked_xent(params, cfg: ModelConfig, h, targets, chunk: int = 512):
     (an activation checkpoint per chunk, as the reference's
     jax.checkpoint on its chunk body). Returns (mean loss, counted
     targets)."""
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = gather_seq(rms_norm(h, params["final_norm"], cfg.norm_eps))
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     body = functools.partial(_xent_chunk, cfg=cfg)
     remat = _needs_grad(h, table)

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import ctx as dist_ctx
 from .layers import rms_norm
 
 
@@ -154,6 +155,35 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     return y, s_prev
 
 
+def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
+    """ssd_chunked on a mesh (plain tensors: unchanged): batch-local over
+    the data axes, head-local over 'model' when the heads shard there
+    (B and C, shared by the heads, are then replicated and their
+    gradients partial sums), else replicated over 'model'. A, shared by
+    the batch, has a partial gradient over the data axes that shard it."""
+    if not any(hasattr(t, "device_mesh") for t in (x, dt, A, B, C)):
+        return ssd_chunked(x, dt, A, B, C, chunk, initial_state=initial_state)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    heads = dist_ctx.is_sharded(x, 2)
+    names = x.device_mesh.mesh_dim_names
+    layout = dist_ctx.batch_layout
+    xpl, dpl = layout(x, 2 if heads else None), layout(dt, 2 if heads else None)
+    apl = tuple(Shard(0) if (n == "model" and heads) else Replicate() for n in names)
+    bpl = layout(B)
+    spl = layout(x, 1 if heads else None)
+    bgrad = tuple(Partial() if (n == "model" and heads) else p for n, p in zip(names, bpl))
+    agrad = tuple(Partial() if (n != "model" and p == Shard(0)) else a
+                  for n, p, a in zip(names, xpl, apl))
+
+    def run(xx, dd, aa, bb, cc, s0):
+        return ssd_chunked(xx, dd, aa, bb, cc, chunk, initial_state=s0)
+
+    return dist_ctx.per_shard(run, (x, dt, A, B, C, initial_state),
+                              (xpl, dpl, apl, bpl, bpl, spl), (xpl, spl),
+                              grad_specs=(xpl, dpl, agrad, bgrad, bgrad, spl))
+
+
 def ssm_forward(params: dict, x, spec: SSMSpec, *, initial_state: Optional[Tuple] = None,
                 return_state: bool = False):
     """Full-sequence Mamba2 block. x (B, S, D) -> (B, S, D); with
@@ -184,8 +214,11 @@ def ssm_forward(params: dict, x, spec: SSMSpec, *, initial_state: Optional[Tuple
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, s_final = ssd_chunked(xs.float().reshape(b, s, h, p), dt, A, Bv.float(), Cv.float(),
-                             spec.chunk,
+    # On a mesh, the SSD internals are head-sharded over 'model' (the
+    # intra-chunk decay tensors are (B, nc, H, Q, Q)).
+    x4 = dist_ctx.constrain("ssm_x4", xs.float().reshape(b, s, h, p))
+    dt = dist_ctx.constrain("ssm_heads3", dt)
+    y, s_final = ssd(x4, dt, A, Bv.float(), Cv.float(), spec.chunk,
                              initial_state=None if initial_state is None else initial_state[0])
     y = y + params["D"][:, None] * xs.float().reshape(b, s, h, p)
     y = y.reshape(b, s, spec.d_inner).to(x.dtype)

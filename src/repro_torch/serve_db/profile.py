@@ -25,9 +25,10 @@ diagnosis until it is decomposed along the serve path, so every
 - **deliver** — handing the batch to the session stream up to the
   instant ``first_result_at`` is stamped.
 
-First-result stages (``*_first``) sum to the measured TTFR to within
-clock-read slack — the few lines of bookkeeping between one stage's
-closing read and the next stage's opening read — and chip_smoke.py's
+First-result stages (``*_first``) sum to the measured TTFR up to float
+rounding: each stage opens at the clock read that closed the one before
+it, so the bookkeeping between them, and any GIL switch or collector
+pause there, falls inside a stage rather than into a gap. chip_smoke.py's
 path 5 asserts the sum lands within 5%; the totals keep accumulating
 over the query's remaining batches.
 

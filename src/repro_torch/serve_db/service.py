@@ -297,9 +297,12 @@ class QueryService:
         # and their queue wait — the stall incremental compaction bounds.
         seq0, wait0 = entry.seq, wait_s
         # TTFR anatomy (profile.py): the stage boundaries below are read
-        # off ONE thread's clock, back to back, so the first-result
-        # stages tile the measured TTFR (bench asserts the sum is within
-        # 5%). Admission closes when this turn starts.
+        # off ONE thread's clock, and each stage begins at the very read
+        # that closed the one before it (`edge`), so the first-result
+        # stages tile the measured TTFR with no unattributed gap: a GIL
+        # switch or a collector pause between two stages lands in one of
+        # them. Admission closes when this turn starts.
+        edge = t0
         prof = entry.stream.profile
         if entry.stream.first_result_at is None:
             prof.admission_s = t0 - entry.stream.submitted_at
@@ -311,7 +314,6 @@ class QueryService:
             # counts toward this query's time-to-first-result like every
             # other serving cost. For the occupancy books this stretch of
             # the hold is density/planning work, not batch stepping.
-            tp0 = time.perf_counter()
             with self._device_lock.reowner("density_read"):
                 with span(
                     "serve.plan", cat="serve",
@@ -321,8 +323,10 @@ class QueryService:
             # plan = run construction minus the density reads the
             # execution layer accumulated inside it (the fenced d_i
             # lookups are their own stage — the paper's follower cost).
+            tp1 = time.perf_counter()
             prof.density_fence_s = prof.density_acc_s
-            prof.plan_s = (time.perf_counter() - tp0) - prof.density_fence_s
+            prof.plan_s = (tp1 - edge) - prof.density_fence_s
+            edge = tp1
             if entry.run.done:  # provably-empty plan: zero batches
                 entry.stream._finish()
                 self._report_session(entry.session)
@@ -345,9 +349,10 @@ class QueryService:
             # Device section accumulated by the execution layer during
             # step(); everything else in the step is host epilogue
             # (top-k merges, valid-row filters, batcher bookkeeping).
+            # The first step's epilogue opens at `edge` (the plan's end).
             dev = prof.device_acc_s - dev0
-            prof.note_step(dev, (end - start) - dev, first)
-            td0 = time.perf_counter()
+            prof.note_step(dev, (end - (edge if first else start)) - dev, first)
+            td0 = end if first else time.perf_counter()
             with span("serve.deliver", cat="serve", session=entry.session.session_id):
                 entry.stream._deliver(self._as_result(entry, blk, wait_s, end - start))
             if first:

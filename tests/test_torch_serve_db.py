@@ -417,6 +417,35 @@ def _prom_samples(text):
     return out
 
 
+def test_stages_tile_ttfr_across_pauses_between_stages(served, monkeypatch):
+    """A pause between two stage boundaries (a GIL switch or a collector
+    pass on a busy host) lands inside a stage, never in an unattributed
+    gap: here 0.1 s before the first step starts and 0.1 s before the
+    batch is handed over, and the stages still tile the TTFR."""
+    pause = 0.1
+    quantum = served.svc.scheduler.quantum
+    budget, note_step = quantum.budget, QueryProfile.note_step
+
+    def slow_budget():
+        time.sleep(pause)
+        return budget()
+
+    def slow_note_step(self, *args):
+        note_step(self, *args)
+        time.sleep(pause)
+
+    monkeypatch.setattr(quantum, "budget", slow_budget)
+    monkeypatch.setattr(QueryProfile, "note_step", slow_note_step)
+    s = served.svc.session("paused")
+    q = s.submit("batched_scan", 0, T_SPAN, TREES[1])
+    q.drain()
+    s.close()
+    p = q.profile
+    assert p.ttfr_s >= 2 * pause
+    assert p.epilogue_s >= pause and p.deliver_s >= pause, p.stages()
+    assert_stages_tile_ttfr(p)
+
+
 def test_metrics_scrape_counts_every_first_result(served):
     """One scrape of /metrics over loopback parses, and its TTFR
     histogram's count grew by exactly the first results delivered."""
