@@ -26,7 +26,7 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  eleven paths at full size, each with every kernel launch count
+  main path  twelve paths at full size, each with every kernel launch count
              zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
@@ -269,6 +269,37 @@ no result line):
                 must equal its spec tree's shards', and the train cell must
                 have collectives. No kernel of the port's own runs on path
                 11.
+            12. the store on a mesh: a one-rank NCCL process group
+                (destroyed after) and a (data=1, model=1) DeviceMesh of the
+                card; path 4's 4,194,304 pre-encoded, pre-hashed rows
+                appended serially (every writer's chunks in the order they
+                were cut) into a meshless plane of 64 tablets and into a
+                mesh plane of tablets_per_device 64 (capacity 131,072,
+                mem_rows 4096, max_runs 4), each timed. The two states must
+                be equal tensor for tensor with dtypes, and so the
+                published levels; scan_step on the tiers, A and B AND 404,
+                B OR C, A AND bytes_out < 1000, Match(domain, "d0000"),
+                bytes_in >= 1,000,000 and A AND bytes_in IN 300,000 codes,
+                index_step on those the planner plans by index,
+                density_step on the tiers and status=404, and
+                aggregate_step and index_aggregate_step for specs (a), (b)
+                and (c) on the tiers and A AND 404, over the 4-hour range,
+                must return the same tensors with the mesh and without, bit
+                for bit; run_scheme's first batch (range, count, rows) and
+                total must be equal for the four schemes on the tiers and A
+                AND 404. merge_runs, filter_scan, merge_intersect and
+                aggregate_combine must launch. Beside these checks, in a
+                subprocess with CUDA hidden, launch/dryrun.py's two store
+                cells (run_store_cell: one rank's scan step of 4,000,000
+                rows a tablet on the single-pod and multi-pod meshes, on a
+                fake process group) must have argument bytes per device
+                equal to the slabs' (4,000,000 x (4 + 4 x 12) + 4) and
+                collectives. Then each step (the first case of each of the
+                five) is timed with the mesh and without: ms with dispatch
+                (cuda_ms) and device ms (device_ms over every CUDA
+                activity, NCCL's included), in turns meshless, mesh, mesh,
+                meshless. [store-mesh] lines, and the peak allocated
+                memory with both planes.
              Paths 1-3 also run the Cmp and Match filter nodes:
              domain = A AND bytes_out < 1000 on all four schemes and on
              path 3 with spec (a), Match(domain, "d0000") (the ten most
@@ -567,7 +598,9 @@ def states_equal(a, b):
 def torch_equal(x, y):
     import torch
 
-    return torch.equal(x.cpu(), y.cpu())
+    if x.device != y.device:
+        x, y = x.cpu(), y.cpu()
+    return torch.equal(x, y)
 
 
 def run_lint():
@@ -1286,8 +1319,7 @@ def serial_ingest(plane, streams):
                 plane.ingest(*stream[i], writer_id=w)
 
 
-def run_sharded(store, encoded, dev, size, queries, cmp_query, agg_results, read_launches,
-                n_writers=4):
+def run_sharded(store, streams, dev, size, queries, cmp_query, agg_results, read_launches):
     """Path 4: the main path's events through W = 4 writer threads into a
     fresh plane of G = 1 and then G = 4 tablet groups, and, as a control,
     appended by one thread into G = 4 groups (the previous plane freed
@@ -1304,8 +1336,7 @@ def run_sharded(store, encoded, dev, size, queries, cmp_query, agg_results, read
     from repro_torch.core.dist_ingest import DistIngestPlane
     from repro_torch.core.dist_query import DistQueryProcessor, from_event_store
 
-    events, n_tab = size["events"], size["tablets"]
-    streams = writer_streams(encoded, n_tab, size["chunk"], n_writers)
+    events, n_tab, n_writers = size["events"], size["tablets"], len(streams)
     specs = agg_specs()
     out = {"writers": n_writers, "runs": {}}
     rows_g1 = served = None
@@ -3224,6 +3255,261 @@ def run_mesh(seed, dev, prompts, smi):
     return report
 
 
+# Path 12: the store on a (data=1, model=1) mesh of the card.
+STORE_CELL_ROWS = 4_000_000  # rows per tablet of the dry-run's store cells
+STORE_CELL_SCRIPT = """
+import json, sys
+from repro_torch.launch.dryrun import MESH_RANKS, fake_world, run_store_cell
+for mesh in ("single_pod", "multi_pod"):
+    with fake_world(MESH_RANKS[mesh]):
+        rec = run_store_cell(mesh, rows_per_tablet=int(sys.argv[1]))
+    print("CELL " + json.dumps(rec), flush=True)
+"""
+
+
+def start_store_cells():
+    """Path 12's dry-run cells in a subprocess on the host (CUDA hidden from
+    it), run beside the mesh store: run_store_cell on the single-pod (256
+    ranks) and multi-pod (512) meshes, on fake process groups."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", STORE_CELL_SCRIPT, str(STORE_CELL_ROWS)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_store_cells(proc, smi):
+    """The store cells' records: each one's argument bytes per device must
+    equal its slabs' (rows x (4 + 4 x 12) for rev_ts and cols, plus one
+    int32 count a tablet), and it must have collectives."""
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"path 12: the store cells failed: {err[-2000:]}")
+    cells = [json.loads(l[len("CELL "):]) for l in out.splitlines() if l.startswith("CELL ")]
+    check(len(cells) == 2, f"path 12: {len(cells)} of 2 store cells")
+    rows = []
+    for rec in cells:
+        name = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+        want = STORE_CELL_ROWS * (4 + 4 * 12) + 4
+        check(rec["memory"]["argument_bytes"] == want,
+              f"path 12 {name}: {rec['memory']['argument_bytes']} argument bytes per device, "
+              f"the slabs hold {want}")
+        check(rec["collectives"]["total_bytes"] > 0, f"path 12 {name}: no collective")
+        r = rec["roofline"]
+        row = {"cell": name, "n_chips": rec["n_chips"], "mesh_shape": rec["mesh_shape"],
+               "argument_bytes": rec["memory"]["argument_bytes"],
+               "peak_gib": rec["memory"]["peak_bytes"] / 2**30,
+               "bytes_per_device": rec["cost"]["bytes_per_device"],
+               "filter_scan_charge": rec["filter_scan_charge"],
+               "collective_bytes_by_op": rec["collectives"]["bytes_by_op"],
+               "collective_count_by_op": rec["collectives"]["count_by_op"],
+               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+               "memory_lower_s": r["memory_lower_s"], "collective_s": r["collective_s"],
+               "bottleneck": r["bottleneck"], "trace_s": rec["trace_s"],
+               "rates": "H100 SXM data sheet (launch/cost_analysis.py)", "card": smi}
+        rows.append(row)
+        log("store-mesh", "cell " + json.dumps(row))
+    return rows
+
+
+def store_mesh_cases(store, dq, tiers, queries):
+    """Path 12's steps as (name, kind, function of a snapshot): scan steps
+    of ``queries`` ((label, tree)) over the whole range; index steps of
+    those the planner (on dq) plans by index; densities of the tiers and
+    status=404; aggregate and index aggregate steps of path 3's specs on
+    the tiers and A AND 404."""
+    import numpy as np
+    import torch
+    from repro_torch.core import keypack, resolve_grouping
+    from repro_torch.core.dist_query import (aggregate_step, density_step,
+                                             index_aggregate_step, index_step, scan_step)
+    from repro_torch.core.planner import plan_query
+
+    dev = dq.device
+    rts_lo, rts_hi = int(keypack.rev_ts(T_SPAN)), int(keypack.rev_ts(0)) + 1
+    cases, programs = [], {}
+    for label, tree in queries:
+        prog = programs[label] = program_tensors(store, tree, dev)
+        cases.append((f"scan {label}", "scan",
+                      lambda d, p=prog: scan_step(d, p, rts_lo, rts_hi, dq.top_k)))
+        plan = plan_query(dq, tree, 0, T_SPAN, w=dq.w)
+        if plan.mode == "index":
+            lo, hi = (torch.from_numpy(x).to(dev) for x in dq._cond_ranges(plan, 0, T_SPAN))
+            cases.append((f"index {label}", "index",
+                          lambda d, p=prog, lo=lo, hi=hi, c=plan.combine: index_step(
+                              d, p, lo, hi, c, dq.top_k, dq.index_postings, dq.index_rows)))
+    for field, value in [("domain", dom) for dom in tiers.values()] + [("status", "404")]:
+        code = store.dictionaries[field].lookup(value)
+        bs = dq.dist.agg_bucket_s
+        lo = int(keypack.pack_agg_key(store.schema.field_id(field), code, 0))
+        hi = int(keypack.pack_agg_key(store.schema.field_id(field), code, T_SPAN // bs)) + 1
+        cases.append((f"density {field}={value}", "density",
+                      lambda d, lo=lo, hi=hi: (density_step(d, lo, hi),)))
+    for sname, spec in agg_specs().items():
+        g = resolve_grouping(store, spec, 0, T_SPAN)
+        vt = torch.from_numpy(g.value_table if g.value_table is not None
+                              else np.ones(1, np.int32)).to(dev)
+        for label, tree in queries:
+            if label not in tuple(tiers) + ("A and 404",):
+                continue
+            prog = programs[label]
+            cases.append((f"aggregate {sname} {label}", "aggregate",
+                          lambda d, p=prog, g=g, vt=vt: aggregate_step(d, p, vt, g, rts_lo,
+                                                                       rts_hi)))
+            plan = plan_query(dq, tree, 0, T_SPAN, w=dq.w)
+            if plan.mode == "index":
+                lo, hi = (torch.from_numpy(x).to(dev) for x in dq._cond_ranges(plan, 0, T_SPAN))
+                cases.append((f"index_aggregate {sname} {label}", "index_aggregate",
+                              lambda d, p=prog, g=g, vt=vt, lo=lo, hi=hi, c=plan.combine:
+                              index_aggregate_step(d, p, vt, g, lo, hi, c, dq.index_postings,
+                                                   dq.index_rows)))
+    return cases
+
+
+def run_store_mesh(store, streams, size, tiers, queries, dev, zero_launches, read_launches,
+                   smi):
+    """Path 12: the store on a (data=1, model=1) DeviceMesh of the card (a
+    one-rank NCCL group, destroyed after). Path 4's pre-encoded,
+    pre-hashed rows go serially into a meshless plane and into a mesh plane
+    of tablets_per_device 64; the published states must be equal tensor for
+    tensor, the five steps equal bit for bit on ``queries`` and path 3's
+    specs, and run_scheme's first batch and total equal for the four
+    schemes. Then each step's ms with dispatch and device ms, with the mesh
+    and without. The store cells of the dry-run run beside the checks,
+    after the timed ingests and before the timed steps. Returns the report
+    and the path's launches (counted up to the timing)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.dist_ingest import DistIngestPlane
+    from repro_torch.core.dist_query import DistQueryProcessor
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    report = {"card": smi, "events": size["events"], "tablets": size["tablets"]}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_dev_mesh(1, 1, device_type=dev.type)
+        report["mesh"] = dict(zip(mesh.mesh_dim_names, map(int, mesh.shape)))
+        zero_launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kw = dict(capacity=size["capacity"], mem_rows=size["mem_rows"],
+                  max_runs=size["max_runs"], append_rows=1024, device=dev)
+        planes, ingest = {}, {}
+        for name, extra in (("meshless", dict(n_tablets=size["tablets"])),
+                            ("mesh", dict(mesh=mesh, tablets_per_device=size["tablets"]))):
+            plane = DistIngestPlane.for_store(store, **kw, **extra)
+            t0 = time.perf_counter()
+            serial_ingest(plane, streams)
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            tel = plane.telemetry()
+            check(int(tel["rows"].sum()) == size["events"], f"path 12 {name}: "
+                  f"{tel['rows'].sum()} rows")
+            ingest[name] = {"seconds": secs, "rows_per_s": size["events"] / secs,
+                            "minor": int(tel["minor"].sum()), "major": int(tel["major"].sum())}
+            planes[name] = plane
+        report["ingest"] = ingest
+        log("store-mesh", "serial ingest of path 4's rows: " + json.dumps(ingest) + f" ({smi})")
+        cells = start_store_cells()
+        try:
+            launches = store_mesh_checks(report, store, planes, size, tiers, queries, dev, mesh,
+                                         read_launches)
+        except BaseException:
+            cells.kill()
+            cells.communicate()
+            raise
+        report["cells"] = finish_store_cells(cells, smi)
+        d0, d1 = planes["meshless"].publish(), planes["mesh"].publish()
+        cases = store_mesh_cases(store, DistQueryProcessor(store, dist=d0, device=dev), tiers,
+                                 queries)
+        timed = {}
+        for name, kind, fn in cases:
+            if kind in timed:  # the first case of each step
+                continue
+            # In turns, meshless, mesh, mesh, meshless: two readings each.
+            row = {"case": name}
+            for label, d in (("meshless", d0), ("mesh", d1), ("mesh", d1), ("meshless", d0)):
+                row.setdefault(f"{label}_cuda_ms", []).append(cuda_ms(lambda: fn(d)))
+                row.setdefault(f"{label}_device_ms", []).append(device_ms(lambda: fn(d), ("",)))
+            timed[kind] = row
+            log("store-mesh", f"{kind} step " + json.dumps(row) + f" ({smi})")
+        report["steps"] = timed
+        del d0, d1, cases, planes
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def store_mesh_checks(report, store, planes, size, tiers, queries, dev, mesh, read_launches):
+    """Path 12's checks (run_store_mesh) on the two ingested planes: their
+    states and published levels equal, the five steps bit for bit,
+    run_scheme's first batch and total for the four schemes, and the
+    path's launches. Adds to the report and returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dist_query import DistQueryProcessor
+
+    check(states_equal(planes["meshless"].state, planes["mesh"].state),
+          "path 12: the mesh plane's state differs from the meshless plane's")
+    d0, d1 = planes["meshless"].publish(), planes["mesh"].publish()
+    check(d1.mesh is mesh and d1.tablets == (0, size["tablets"]) and d0.mesh is None,
+          f"path 12: the mesh snapshot holds tablets {d1.tablets}")
+    levels = ("rev_ts", "cols", "counts", "run_rev_ts", "run_cols", "run_counts", "mem_rev_ts",
+              "mem_cols", "mem_counts", "ix_mem_k", "ix_mem_n", "ag_mem_k", "ag_mem_c", "ag_mem_n")
+    check(states_equal({f: getattr(d0, f) for f in levels}, {f: getattr(d1, f) for f in levels}),
+          "path 12: the published levels differ")
+    log("store-mesh", "the mesh plane's state and published levels equal the meshless "
+        "plane's tensor for tensor, dtypes included")
+    dq0 = DistQueryProcessor(store, dist=d0, device=dev)
+    dq1 = DistQueryProcessor(store, dist=d1, device=dev)
+    cases = store_mesh_cases(store, dq0, tiers, queries)
+    by_kind = Counter()
+    for name, kind, fn in cases:
+        check(states_equal(dict(enumerate(fn(d0))), dict(enumerate(fn(d1)))),
+              f"path 12 {name}: the mesh step differs")
+        by_kind[kind] += 1
+    log("store-mesh", f"{len(cases)} steps bit for bit equal with the mesh and without: "
+        + json.dumps(by_kind))
+    schemes = []
+    for label, tree in queries:
+        if label not in tuple(tiers) + ("A and 404",):
+            continue
+        for scheme in SCHEMES:
+            row = {"query": label, "scheme": scheme}
+            for name, q in (("meshless", dq0), ("mesh", dq1)):
+                t0 = time.perf_counter()
+                blocks = list(q.run_scheme(scheme, 0, T_SPAN, tree))
+                check(len(blocks) > 0, f"path 12 {label} {scheme} {name}: no batch")
+                row[name] = {"first": blocks[0], "total": sum(b.count for b in blocks),
+                             "batches": len(blocks), "s": time.perf_counter() - t0}
+            a, b = row["meshless"].pop("first"), row["mesh"].pop("first")
+            check(a.count == b.count and (a.lo, a.hi) == (b.lo, b.hi)
+                  and a.ts.dtype == b.ts.dtype and np.array_equal(a.ts, b.ts)
+                  and np.array_equal(a.cols, b.cols)
+                  and row["meshless"]["total"] == row["mesh"]["total"],
+                  f"path 12 {label} {scheme}: the mesh's first batch or total differs")
+            schemes.append(row)
+    report["schemes"] = schemes
+    log("store-mesh", "run_scheme's first batch and total equal with the mesh and without: "
+        + json.dumps(schemes))
+    launches = read_launches()
+    log("launches", "path 12 (the store on a mesh): " + json.dumps(launches))
+    check(all(launches[k] > 0 for k in ("merge_runs", "filter_scan", "merge_intersect",
+                                        "aggregate_combine")),
+          f"a kernel of path 12 never launched: {launches}")
+    report["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    report["state_bytes"] = {k: p.state_bytes() for k, p in planes.items()}
+    log("store-mesh", f"peak allocated {report['peak_allocated_bytes']} bytes with both planes; "
+        f"state bytes {json.dumps(report['state_bytes'])}")
+    return launches
+
+
 def host_major_inputs(store, seed):
     """merge_runs' inputs at the host store's major shape, from index
     tablet 0 of a path-6 store: a first major's K = max_runs + 1 runs of
@@ -3456,10 +3742,11 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
     zero_launches()
     path4_queries = [(tier, eq[tier], domain_counts[tiers[tier]]) for tier in tiers]
     path4_queries.append(("A and 404", ands["A"], pair_counts[(tiers["A"], "404")]))
-    report["sharded"], g4_plane = run_sharded(
-        store, encoded, dev, size, path4_queries, cmp_a, agg_results, read_launches)
-    launches_4 = read_launches()
+    streams = writer_streams(encoded, size["tablets"], size["chunk"], 4)
     encoded.clear()
+    report["sharded"], g4_plane = run_sharded(
+        store, streams, dev, size, path4_queries, cmp_a, agg_results, read_launches)
+    launches_4 = read_launches()
     log("launches", "path 4 (sharded plane and bulk replay): " + json.dumps(launches_4))
     check(all(launches_4[k] > 0 for k in ("merge_runs", "filter_scan", "merge_intersect",
                                            "aggregate_combine")),
@@ -3530,8 +3817,19 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
     log("launches", "path 11 (mesh steps and dry-run; no kernel of their own): "
         + json.dumps(launches_11))
     del prompts
+    # Path 12: the store on a (1, 1) mesh of the card against the meshless
+    # store, on path 4's rows; the store cells of the dry-run on the host.
+    store_queries = [(tier, eq[tier]) for tier in tiers] + [
+        ("A and 404", ands["A"]), ("B and 404", ands["B"]), ("B or C", b_or_c),
+        cmp_a[:2], match[:2], ("bytes_in>=1e6", Cmp("bytes_in", ">=", 1_000_000)),
+        (f"A and bytes_in in {n_in:,}", big_in)]
+    t0 = time.perf_counter()
+    report["store_mesh"], launches_12 = run_store_mesh(
+        store, streams, size, tiers, store_queries, dev, zero_launches, read_launches, smi)
+    report["store_mesh"]["path_seconds"] = time.perf_counter() - t0
+    del streams
     paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7,
-             launches_8, launches_9, launches_10, launches_11)
+             launches_8, launches_9, launches_10, launches_11, launches_12)
     launches = {k: sum(p[k] for p in paths) for k in launches_1}
     report["launches"] = {"total": launches,
                           **{f"path_{i}": p for i, p in enumerate(paths, start=1)}}

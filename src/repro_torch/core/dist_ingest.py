@@ -2,11 +2,18 @@
 of the paper's tables (§IV-A); the port of the reference's
 core/dist_ingest.py.
 
-All T tablets sit on one device as the leading dimension of every state
-tensor (the reference's shard_map over the mesh and vmap over tablets).
-The plane shards them into G tablet groups (the paper's tablet servers),
-each a contiguous tablet range with its own lock and state, so writers
-whose rows land on different groups append concurrently.
+Without a mesh, all T tablets sit on one device as the leading dimension
+of every state tensor (the reference's vmap over tablets). On a
+torch.distributed DeviceMesh of R ranks every rank is a tablet server,
+as every chip is in the reference's shard_map: T = R * tablets_per_device,
+every rank takes the same batches and appends only the rows of its own
+tablets, and its compactions run on its own state with no collective.
+The plane shards a rank's tablets into G tablet groups, each a contiguous
+tablet range with its own lock and state, so writers whose rows land on
+different groups append concurrently. Group g owns the global tablets
+[g * T/G, (g+1) * T/G); on a mesh the rank whose row-major mesh
+coordinate is r holds tablets [g * T/G + r * tl, g * T/G + (r+1) * tl)
+of it, tl = tablets_per_device / G (the reference's layout).
 The LSM lifecycle runs as PyTorch steps over that state:
 
     append   DistBatchWriter shards encoded events by row hash; each
@@ -51,7 +58,7 @@ import torch
 
 from . import keypack
 from .device import resolve_device
-from .dist_query import DistStore
+from .dist_query import DistStore, mesh_rank
 from .ingest import BatchWriter, IngestMetrics, check_shard_guidance
 from .store import DEFAULT_AGG_BUCKET_SECONDS
 from ..kernels.aggregate_combine import combine_compact
@@ -110,11 +117,19 @@ def _rank_within(tab: np.ndarray, counts: np.ndarray) -> np.ndarray:
 class _PlanePrograms:
     """The plane's static configuration and its five device steps (append,
     minor, major, fold_one, seal), each over a state dict of (T, ...)
-    tensors."""
+    tensors, T = n_tablets: one group's tablets on this rank. ``mesh`` (a
+    DeviceMesh over the default process group, or None) gives the rank's
+    linear index ``rank`` of ``n_ranks``; the steps themselves run on the
+    rank's state alone."""
 
     def __init__(self, n_fields: int, capacity: int, n_tablets: int, mem_rows: int,
                  max_runs: int, append_rows: int, indexed_fids: Tuple[int, ...],
-                 agg_bucket_s: int, device: torch.device):
+                 agg_bucket_s: int, device: torch.device, mesh=None):
+        if mesh is not None and mesh.device_type != device.type:
+            raise ValueError(f"the mesh's device type {mesh.device_type!r} is not the "
+                             f"plane's device {device}")
+        self.mesh = mesh
+        self.rank, self.n_ranks = (0, 1) if mesh is None else mesh_rank(mesh)
         self.n_fields = int(n_fields)
         self.n_tablets = int(n_tablets)
         self.capacity = int(capacity)
@@ -322,8 +337,14 @@ class TabletGroup:
     Everything here is guarded by ``self.lock``, so writers on different
     groups never contend.
 
-    Global tablet ``t`` belongs to group ``t // n_tablets`` and is its
-    local tablet ``t - t0``; every array here indexes local ids. Counters
+    The group owns the global tablets [g0, g0 + n_group_tablets). The
+    device state holds this rank's ``n_tablets`` of them, global tablet
+    ``t`` in [t0, t0 + n_tablets) as local tablet ``t - t0``; without a
+    mesh that is the whole group. The host mirrors cover the whole group
+    on every rank: each rank takes the same batches, so each decides every
+    flush, major and fold as the reference's single controller decides it
+    for the whole mesh, with no collective, and runs it on its own
+    tablets. Counters
     land on the plane's shared registry, so the per-writer blocked seconds
     sum to the plane's scalar however one writer's waits split across
     groups."""
@@ -332,8 +353,11 @@ class TabletGroup:
                  m_folds, m_last_seal_rows, m_group_stall, m_group_stall_events):
         self.gid = int(gid)
         self.programs = programs
-        self.n_tablets = programs.n_tablets  # local (per-group) count
-        self.t0 = self.gid * self.n_tablets  # global id of local tablet 0
+        self.n_tablets = programs.n_tablets  # this rank's tablets of the group
+        self.n_group_tablets = programs.n_ranks * self.n_tablets
+        self.g0 = self.gid * self.n_group_tablets  # global id of the group's first tablet
+        self.lo = programs.rank * self.n_tablets  # this rank's first, within the group
+        self.t0 = self.g0 + self.lo  # global id of local tablet 0
         self._m_seal = m_seal
         self._m_blocked = m_blocked
         self._m_folds = m_folds
@@ -344,11 +368,14 @@ class TabletGroup:
         # plane names each group's lock, so the occupancy books attribute
         # contention to the group that serialized it.
         self.lock = OwnedLock("plane_lock" if n_groups == 1 else f"plane_lock_g{self.gid}")
-        self._fill = np.zeros(self.n_tablets, np.int64)  # guarded-by: lock
-        self._runs_host = np.zeros(self.n_tablets, np.int32)  # guarded-by: lock
-        self._rows_host = np.zeros(self.n_tablets, np.int64)  # guarded-by: lock
-        self._minor_host = np.zeros(self.n_tablets, np.int32)  # guarded-by: lock
-        self._major_host = np.zeros(self.n_tablets, np.int32)  # guarded-by: lock
+        # Host mirrors of every tablet of the group (all ranks'), in
+        # group-local order.
+        n = self.n_group_tablets
+        self._fill = np.zeros(n, np.int64)  # guarded-by: lock
+        self._runs_host = np.zeros(n, np.int32)  # guarded-by: lock
+        self._rows_host = np.zeros(n, np.int64)  # guarded-by: lock
+        self._minor_host = np.zeros(n, np.int32)  # guarded-by: lock
+        self._major_host = np.zeros(n, np.int32)  # guarded-by: lock
         self._dirty = True  # guarded-by: lock
         self._published: Optional[DistStore] = None  # guarded-by: lock
         # Generation per LSM level: appends bump "mem"; a minor bumps "mem"
@@ -361,8 +388,11 @@ class TabletGroup:
 
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
         """Replace the device state (same keys and shapes) and derive the
-        host mirrors from it."""
+        host mirrors from it (meshless only: the mirrors cover other ranks'
+        tablets)."""
         with self.lock.hold("bookkeeping"):
+            if self.programs.mesh is not None:
+                raise RuntimeError("load_state needs a meshless plane")
             if state.keys() != self.state.keys():
                 raise ValueError("state keys differ from the plane's")
             for name, t in state.items():
@@ -427,9 +457,11 @@ class TabletGroup:
     def ingest(self, rts: np.ndarray, cols: np.ndarray, tab: np.ndarray,
                writer_id: int = 0) -> float:
         """Append a pre-encoded batch whose tablet ids are local to this
-        group. Returns seconds this writer spent blocked on majors it
-        tripped here; they also go to the plane's per-writer counter and,
-        keyed by group, to its stall counters."""
+        group (in [0, n_group_tablets)); on a mesh only the rows of this
+        rank's tablets reach the device, and the mirrors take them all.
+        Returns seconds this writer spent blocked on majors it tripped
+        here; they also go to the plane's per-writer counter and, keyed by
+        group, to its stall counters."""
         n = len(rts)
         if n == 0:
             return 0.0
@@ -446,20 +478,27 @@ class TabletGroup:
 
     def _ingest_locked(self, rts, cols, tab, n: int) -> float:  # holds: lock
         pr = self.programs
-        t, m = self.n_tablets, pr.mem_rows
+        t, lo, m = self.n_tablets, self.lo, pr.mem_rows
         n_idx = len(pr.indexed_fids)
-        # One host-to-device copy of the batch: rev_ts beside the codes.
-        packed = np.empty((n, 1 + pr.n_fields), np.int32)
-        packed[:, 0] = rts
-        packed[:, 1:] = cols
+        # One host-to-device copy of this rank's rows: rev_ts beside the
+        # codes. Chunk [off, off + b) of the batch is rows_dev[at[off]:
+        # at[off + b]].
+        tab = tab.astype(np.int64)
+        mine = (tab >= lo) & (tab < lo + t)
+        at = np.concatenate([[0], np.cumsum(mine)])
+        sel = slice(None) if t == self.n_group_tablets else mine
+        packed = np.empty((int(at[-1]), 1 + pr.n_fields), np.int32)
+        packed[:, 0] = rts[sel]
+        packed[:, 1:] = cols[sel]
         rows_dev = torch.from_numpy(packed).to(pr.device)
         blocked = 0.0
         for off in range(0, n, pr.append_rows):
-            tab_c = tab[off: off + pr.append_rows].astype(np.int64)
-            cb = np.bincount(tab_c, minlength=t)
+            end = min(off + pr.append_rows, n)
+            tab_g = tab[off: end]
+            cb_g = np.bincount(tab_g, minlength=self.n_group_tablets)
             # Exact room check from the host fill mirror: flush only when
             # some tablet's memtable would overflow.
-            if np.any(self._fill + cb > m):
+            if np.any(self._fill + cb_g > m):
                 if np.any((self._fill > 0) & (self._runs_host >= pr.max_runs)):
                     # No free run slot for a tablet that must flush: a major
                     # first, blocking this writer (backpressure) until the
@@ -474,19 +513,22 @@ class TabletGroup:
                     self._m_folds.inc(source="ingest")
                 with span("ingest.minor", cat="ingest", group=self.gid):
                     self._run_minor()
-            if np.any(self._fill + cb > m):  # the flush above always makes room
+            if np.any(self._fill + cb_g > m):  # the flush above always makes room
                 raise RuntimeError("memtable has no room after a flush")
             # Destinations from the exact host fill mirror: a tablet's rows
             # land after its fill, in chunk order; entry i of a row's
             # indexed fields lands i * (tablet's chunk rows) further on.
-            j = _rank_within(tab_c, cb)
-            fill = self._fill[tab_c]
-            plan = np.stack([tab_c, tab_c * m + fill + j,
-                             tab_c * (n_idx * m) + n_idx * fill + j, cb[tab_c]])
-            pr.append(self.state, rows_dev[off: off + len(tab_c)],
-                      torch.from_numpy(plan).to(pr.device))
-            self._fill += cb
-            self._rows_host += cb
+            tab_c = tab_g[mine[off: end]] - lo
+            if len(tab_c):
+                cb = cb_g[lo: lo + t]
+                j = _rank_within(tab_c, cb)
+                fill = self._fill[lo: lo + t][tab_c]
+                plan = np.stack([tab_c, tab_c * m + fill + j,
+                                 tab_c * (n_idx * m) + n_idx * fill + j, cb[tab_c]])
+                pr.append(self.state, rows_dev[at[off]: at[end]],
+                          torch.from_numpy(plan).to(pr.device))
+            self._fill += cb_g
+            self._rows_host += cb_g
         self._dirty = True
         self._gen["mem"] += 1
         return blocked
@@ -498,11 +540,13 @@ class TabletGroup:
         copy of the memtables — O(live fill) device work, no fold, under
         this group's lock only. Reused as is when nothing changed since the
         last snapshot; the sealed memtables are reused while the "mem"
-        generation is unchanged."""
+        generation is unchanged. On a mesh every rank's mirrors move alike,
+        so the ranks reuse their snapshots (and their density memos) at the
+        same publishes."""
         with self.lock.hold("publish_seal"):
+            pr = self.programs
             if not self._dirty and self._published is not None:
                 return self._published
-            pr = self.programs
             gen_mem = self._gen["mem"]
             if self._sealed_cache is not None and self._sealed_cache[0] == gen_mem:
                 _, sealed, seal_rows = self._sealed_cache
@@ -533,6 +577,8 @@ class TabletGroup:
                     ag_mem_k=ag_k, ag_mem_c=ag_c, ag_mem_n=ag_n,
                     agg_bucket_s=pr.agg_bucket_s,
                 )
+            if pr.mesh is not None:
+                levels.update(mesh=pr.mesh, tablets=(self.t0, self.t0 + self.n_tablets))
             self._published = DistStore(**levels, gens=dict(self._gen))
             self._dirty = False
             return self._published
@@ -578,7 +624,8 @@ class TabletGroup:
             return int(self._runs_host.max())
 
     def counter_mirrors(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Copies of the per-tablet (rows, minor, major) host mirrors."""
+        """Copies of the per-tablet (rows, minor, major) host mirrors of the
+        group's tablets, from g0 on."""
         with self.lock.hold("bookkeeping"):
             return self._rows_host.copy(), self._minor_host.copy(), self._major_host.copy()
 
@@ -637,11 +684,18 @@ class TabletGroup:
 
 
 class DistIngestPlane:
-    """Device-resident LSM tablet grid: n_tablets tablets on one device,
-    each with a memtable slab (mem_rows), max_runs sorted-run slots and a
-    base run (capacity rows), per family — sharded into ``n_groups``
-    independently locked :class:`TabletGroup`s, group g owning the
-    contiguous global range [g * T/G, (g+1) * T/G).
+    """Device-resident LSM tablet grid: n_tablets tablets, each with a
+    memtable slab (mem_rows), max_runs sorted-run slots and a base run
+    (capacity rows), per family — sharded into ``n_groups`` independently
+    locked :class:`TabletGroup`s, group g owning the contiguous global
+    range [g * T/G, (g+1) * T/G).
+
+    Without a mesh every tablet is on ``device``. With ``mesh`` (a
+    DeviceMesh over the default process group, its device type the
+    plane's) every rank holds tablets_per_device of them, n_tablets = R *
+    tablets_per_device (give either; the default is one a rank), and
+    n_groups must divide tablets_per_device. Every rank then calls
+    ingest() with the same batches and publish() at the same points.
 
     The plane is a facade: it routes batches to groups by tablet id,
     composes the groups' snapshots at publish(), picks the most-indebted
@@ -652,18 +706,31 @@ class DistIngestPlane:
     ``device`` defaults to "cuda" and raises when CUDA is missing; the
     CPU tests pass device="cpu", which runs the kernels' plain versions."""
 
-    def __init__(self, n_fields: int, capacity: int, n_tablets: int = 1,
+    def __init__(self, n_fields: int, capacity: int, n_tablets: Optional[int] = None,
                  mem_rows: int = 4096, max_runs: int = 4, append_rows: int = 1024,
                  indexed_fids: Sequence[int] = (),
                  agg_bucket_s: int = DEFAULT_AGG_BUCKET_SECONDS, n_groups: int = 1,
-                 device="cuda"):
+                 device="cuda", mesh=None, tablets_per_device: Optional[int] = None):
         if n_groups < 1:
             raise ValueError(f"n_groups must be >= 1, got {n_groups}")
-        if n_tablets % n_groups:
-            raise ValueError(f"n_groups={n_groups} must divide n_tablets={n_tablets}: each "
-                             "group owns an equal, contiguous tablet range")
         self.device = resolve_device(device)
-        self.n_tablets = int(n_tablets)
+        n_ranks = 1 if mesh is None else mesh.size()
+        if tablets_per_device is None:
+            n_tablets = n_ranks if n_tablets is None else int(n_tablets)
+            if n_tablets % n_ranks:
+                raise ValueError(f"n_tablets={n_tablets} does not divide over the mesh's "
+                                 f"{n_ranks} ranks")
+            tablets_per_device = n_tablets // n_ranks
+        elif n_tablets is not None and n_tablets != n_ranks * tablets_per_device:
+            raise ValueError(f"n_tablets={n_tablets} is not {n_ranks} ranks x "
+                             f"tablets_per_device={tablets_per_device}")
+        if tablets_per_device % n_groups:
+            what = "n_tablets" if mesh is None else "tablets_per_device"
+            raise ValueError(f"n_groups={n_groups} must divide {what}={tablets_per_device}: "
+                             "each group owns an equal, contiguous tablet range")
+        self.mesh = mesh
+        self.tablets_per_device = int(tablets_per_device)
+        self.n_tablets = n_ranks * self.tablets_per_device
         self.n_groups = int(n_groups)
         self.tablets_per_group = self.n_tablets // self.n_groups
         self.metrics = MetricsRegistry(f"plane{next(_plane_seq)}")
@@ -690,8 +757,8 @@ class DistIngestPlane:
         self._m_tab_major = m.gauge(
             "plane_tablet_major", "major compactions per tablet (host mirror)")
         self.programs = _PlanePrograms(
-            n_fields, capacity, self.tablets_per_group, mem_rows, max_runs, append_rows,
-            tuple(indexed_fids), agg_bucket_s, self.device,
+            n_fields, capacity, self.tablets_per_device // self.n_groups, mem_rows, max_runs,
+            append_rows, tuple(indexed_fids), agg_bucket_s, self.device, mesh,
         )
         self.families = self.programs.families
         self.groups: Tuple[TabletGroup, ...] = tuple(
@@ -782,23 +849,23 @@ class DistIngestPlane:
                writer_id: int = 0) -> float:
         """Append a pre-encoded, pre-sharded batch: rts int32 reversed
         timestamps, cols (n, F) int32 codes, tab (n,) global tablet ids.
-        Each row goes to the group owning its tablet (tab //
-        tablets_per_group), under that group's lock only. Returns seconds
-        this writer spent blocked on majors it tripped, summed over the
-        groups the batch touched."""
+        Each row goes to the group owning its tablet, under that group's
+        lock only; on a mesh, the device takes only the rows of this rank's
+        tablets. Returns
+        seconds this writer spent blocked on majors it tripped, summed over
+        the groups the batch touched."""
         rts = np.asarray(rts, np.int32)
         cols = np.asarray(cols, np.int32)
         tab = np.asarray(tab, np.int64)
         if len(tab) and (tab.min() < 0 or tab.max() >= self.n_tablets):
             raise ValueError(f"tablet ids must lie in [0, {self.n_tablets})")
-        if self.n_groups == 1:
+        if self.n_groups == 1 and self.mesh is None:
             return self.groups[0].ingest(rts, cols, tab, writer_id=writer_id)
-        gids = tab // self.tablets_per_group
         blocked = 0.0
         for g in self.groups:
-            m = gids == g.gid
+            m = (tab >= g.g0) & (tab < g.g0 + g.n_group_tablets)
             if m.any():
-                blocked += g.ingest(rts[m], cols[m], tab[m] - g.t0, writer_id=writer_id)
+                blocked += g.ingest(rts[m], cols[m], tab[m] - g.g0, writer_id=writer_id)
         return blocked
 
     # ------------------------------------------------------------ reads
@@ -808,7 +875,9 @@ class DistIngestPlane:
         returns its group's snapshot; a sharded plane returns a composite
         whose ``groups`` hold the groups' snapshots in tablet order — a
         group clean since its last snapshot gives the same object again,
-        and when every group does, so does the composite."""
+        and when every group does, so does the composite (never on a mesh:
+        TabletGroup.snapshot). On a mesh the snapshot holds this rank's
+        tablets and carries the mesh."""
         with span("ingest.publish", cat="ingest"):
             if self.n_groups == 1:
                 out = self.groups[0].snapshot()
@@ -822,7 +891,8 @@ class DistIngestPlane:
                     return cached
                 self._composite = DistStore(
                     groups=subs, gens={f"g{g.gid}": dict(sub.gens)
-                                       for g, sub in zip(self.groups, subs)})
+                                       for g, sub in zip(self.groups, subs)},
+                    mesh=self.mesh)
                 return self._composite
 
     def warm_seal(self) -> None:
@@ -884,14 +954,15 @@ class DistIngestPlane:
                 # Read after the generations: the gauges are at least as new.
                 rows, minor, major = g.counter_mirrors()
                 for i in range(len(rows)):
-                    t = g.t0 + i
+                    t = g.g0 + i
                     self._m_tab_rows.set(float(rows[i]), tablet=t)
                     self._m_tab_minor.set(float(minor[i]), tablet=t)
                     self._m_tab_major.set(float(major[i]), tablet=t)
                 self._gauge_gens[g.gid] = gens[g.gid]
 
     def telemetry(self) -> Dict[str, object]:
-        """Per-tablet device counters in global tablet order, plus the
+        """Per-tablet device counters in global tablet order (on a mesh,
+        this rank's tablets, group by group), plus the
         plane's metric views: blocked seconds (in all and per writer), the
         sessions' stats, fold events, the level generations (per group,
         keyed "g<i>", on a sharded plane) and the seal counts."""
@@ -917,7 +988,10 @@ class DistBatchWriter(BatchWriter):
     """Client-side ingest writer for the device plane: a flush encodes
     through the store's dictionaries, shards by row hash and appends
     through the plane. writer_id salts the row hash and keys the plane's
-    per-writer blocked seconds; omitted, each writer gets a fresh id."""
+    per-writer blocked seconds; omitted, each writer gets a fresh id. On a
+    mesh plane every rank runs the writer on the same events (and so
+    encodes them into the same dictionary codes); each keeps its own
+    tablets' rows."""
 
     _next_id = itertools.count()
 

@@ -1,16 +1,26 @@
 """Device query execution — the paper's four §IV-B schemes (scan, batched
 scan, index, batched index) over a published snapshot of the ingest
 plane or of a bulk replay; the port of the reference's
-core/dist_query.py on one device.
+core/dist_query.py.
 
-All T tablets sit on one device as a leading dimension (the reference's
-shard_map over the mesh and vmap over tablets). One adaptive batch is one
-device step over a time sub-range. The scan step:
+Without a mesh, all T tablets sit on one device as a leading dimension
+(the reference's vmap over tablets). On a torch.distributed DeviceMesh
+every rank is a tablet server, as every chip is in the reference's
+shard_map: the rank whose row-major mesh coordinate is r holds global
+tablets [r * tl, (r + 1) * tl), runs the same per-tablet code on them,
+and the steps combine across ranks with collectives over the default
+process group (which the mesh spans): counts, truncation and densities
+all-reduce with SUM, aggregates with SUM, MIN or MAX (the reference's
+psum, pmin and pmax), and the per-tablet top-k slates all-gather into
+global tablet order. Every host branch on a step's result then reads
+the same value on every rank, so the ranks enter the same collectives.
+One adaptive batch is one device step over a time sub-range. The scan
+step:
 
     time-range restriction   sorted rev_ts -> per-tablet searchsorted
     filter                   the postfix predicate program, through the
                              filter_scan kernel: one launch for all levels
-    count                    per tablet, summed over T
+    count                    per tablet, summed over T (and the mesh)
     top-k newest             per level, merged by rev_ts across levels
 
 The index step (paper Fig 2), for index-mode plans:
@@ -64,6 +74,7 @@ from .iterators import AggregateResult, AggregateSpec, ResolvedGrouping, resolve
 from .planner import QueryPlan, plan_query
 from .query import QueryStats
 from .store import EventStore
+from ..distributed.sharding import P
 from ..kernels.combine_scan.ref import IDENTITY
 from ..kernels.filter_scan import filter_scan_levels, program_tensors
 from ..kernels.merge_intersect import member_mask
@@ -107,6 +118,11 @@ class DistStore:
     Each sub-snapshot keeps its own density_cache, so a group clean since
     the last publish keeps its densities. A plane's snapshot carries its
     level generations ({"mem", "runs", "base"}) in ``gens``.
+
+    On a mesh (``mesh`` a DeviceMesh over the default process group) the
+    level tensors hold this rank's tablets only, the global tablets
+    ``tablets`` = [lo, hi); n_tablets counts every rank's. A composite
+    and its sub-snapshots all carry the mesh.
     """
 
     rev_ts: Optional[torch.Tensor] = None
@@ -136,6 +152,8 @@ class DistStore:
     agg_bucket_s: Optional[int] = None
     gens: Optional[Dict[str, object]] = None
     groups: Optional[Tuple["DistStore", ...]] = None
+    mesh: Optional[object] = None
+    tablets: Optional[Tuple[int, int]] = None
     density_cache: Dict[Tuple, int] = field(default_factory=dict, repr=False)
 
     @property
@@ -144,9 +162,11 @@ class DistStore:
 
     @property
     def n_tablets(self) -> int:
+        """Global tablets: every rank's on a mesh."""
         if self.groups is not None:
             return sum(g.n_tablets for g in self.groups)
-        return self.rev_ts.shape[0]
+        ranks = 1 if self.mesh is None else self.mesh.size()
+        return self.rev_ts.shape[0] * ranks
 
     @property
     def capacity(self) -> int:
@@ -198,6 +218,104 @@ class DistStore:
             return (base,)
         return (base, (self.ag_run_k, self.ag_run_c, self.ag_run_n),
                 (self.ag_mem_k, self.ag_mem_c, self.ag_mem_n))
+
+
+# --------------------------------------------------------------- mesh
+def mesh_rank(mesh) -> Tuple[int, int]:
+    """(this rank's row-major linear index over the mesh's axes, the number
+    of ranks): the reference's _linear_device_index. The mesh must hold the
+    default process group's ranks in row-major order, as init_device_mesh
+    (and so launch/mesh.py) lays them out: every collective of the store
+    runs over the default group, whose rank order is then the mesh's."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("a store on a mesh needs a process group")
+    order = mesh.mesh.flatten().tolist()  # the global rank at each linear index
+    if order != list(range(dist.get_world_size())):
+        raise ValueError(f"the store's mesh must hold the default process group's "
+                         f"{dist.get_world_size()} ranks in row-major order; it holds {order}")
+    return dist.get_rank(), len(order)
+
+
+def tablet_specs(mesh) -> Dict[str, P]:
+    """Tablets shard over all mesh axes, every rank a tablet server: the
+    reference's partition specs of the base slabs."""
+    axes = tuple(mesh.mesh_dim_names)
+    return {"rev_ts": P(axes, None), "cols": P(axes, None, None), "counts": P(axes)}
+
+
+def dist_store_shapes(mesh, rows_per_tablet: int, n_fields: int,
+                      tablets_per_device: int = 1) -> Dict[str, torch.Tensor]:
+    """The global shapes and dtypes of the base slabs of a store on
+    ``mesh``, as meta tensors (nothing allocated), for the dry-run."""
+    t = mesh.size() * tablets_per_device
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    return {"rev_ts": meta(t, rows_per_tablet), "cols": meta(t, rows_per_tablet, n_fields),
+            "counts": meta(t)}
+
+
+def _group_name() -> str:
+    import torch.distributed as dist
+
+    return dist.group.WORLD.group_name
+
+
+def _all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    """t reduced over every rank of the default group ("sum", "min" or
+    "max"), a functional collective (the dry-run's cost model sees it)."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_reduce(t, op, _group_name()))
+
+
+def _all_gather(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's (n, ...) t as one (R * n, ...) tensor in row-major mesh
+    order (mesh_rank: the default group's rank order): the reference's
+    out-spec P(axes, ...)."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_gather_into_tensor(t.contiguous(), mesh.size(),
+                                                        _group_name()))
+
+
+_MESH_REDUCE = {"count": "sum", "sum": "sum", "min": "min", "max": "max"}
+
+
+def _mesh_aggs(d: DistStore, aggs: torch.Tensor, cnts: torch.Tensor, op: str):
+    """The per-rank dense (aggs, cnts) combined over the mesh: the
+    reference's psum, pmin or pmax of the aggregates and psum of the counts.
+    An empty group keeps its identity (0, INT32_MAX or INT32_MIN)."""
+    if d.mesh is None:
+        return aggs, cnts
+    return _all_reduce(aggs, _MESH_REDUCE[op]), _all_reduce(cnts, "sum")
+
+
+def _mesh_sums(d: DistStore, *scalars: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """int32 scalars summed over the mesh in one all-reduce."""
+    if d.mesh is None:
+        return scalars
+    return tuple(_all_reduce(torch.stack(scalars), "sum").unbind(0))
+
+
+def _mesh_slates(d: DistStore, out_ts: torch.Tensor, out_cols: torch.Tensor):
+    """Per-tablet top-k slates of every rank, in global tablet order."""
+    if d.mesh is None:
+        return out_ts, out_cols
+    return _all_gather(d.mesh, out_ts), _all_gather(d.mesh, out_cols)
+
+
+# reprolint: hot-path — a mesh query's adaptive batcher reads this per batch
+def _agreed_seconds(d: DistStore, seconds: float) -> float:
+    """A batch's runtime as every rank's batcher must read it: on a mesh the
+    slowest rank's (the all-reduced MAX), since batch ranges that differ
+    between ranks would pair different steps' collectives."""
+    if d.mesh is None:
+        return seconds
+    t = torch.tensor(seconds, dtype=torch.float64).to(d.device)
+    with span("query.agree_runtime", cat="query") as sp:
+        return float(sp.fence(_all_reduce(t, "max")))
 
 
 def _searchsorted(seq: torch.Tensor, values: torch.Tensor, right: bool = False) -> torch.Tensor:
@@ -271,14 +389,17 @@ def scan_step(d: DistStore, program, rts_lo: int, rts_hi: int, top_k: int = 128)
     int32 tensors); the rev_ts range is [rts_lo, rts_hi). Per level the
     range restriction, and for all levels one filter_scan launch. Returns
     the int32 total count, the (T, k) newest matches' rev_ts per tablet (-1
-    where there is none) and their (T, k, F) cols."""
+    where there is none) and their (T, k, F) cols. On a mesh each rank
+    scans its own tablets; the count is all-reduced and the slates
+    all-gathered, so every rank returns the global result."""
     probe = torch.tensor([rts_lo, rts_hi], dtype=torch.int32).to(d.device)
     levels = d.ev_levels()
     hits = filter_scan_levels([cols for _, cols, _ in levels], program)
     parts = [_filter_topk(rev, cols, hit & _in_range(rev, probe, live), top_k)
              for (rev, cols, live), hit in zip(levels, hits)]
     count, out_ts, out_cols = _merged_slates(parts, top_k)
-    return count.sum(dtype=torch.int32), out_ts, out_cols
+    (total,) = _mesh_sums(d, count.sum(dtype=torch.int32))
+    return (total, *_mesh_slates(d, out_ts, out_cols))
 
 
 # ------------------------------------------------------------ density
@@ -286,12 +407,12 @@ def density_step(d: DistStore, lo: int, hi: int) -> torch.Tensor:
     """The planner's density read: the int64 total count over the packed
     aggregate-key range [lo, hi), per tablet and level a searchsorted and a
     masked sum (run and memtable levels may repeat a key; their counts
-    add), summed over T — the port of build_density_step."""
+    add), summed over T and the mesh — the port of build_density_step."""
     probe = torch.tensor([lo, hi], dtype=torch.int64).to(d.device)
     total = torch.zeros((), dtype=torch.int64, device=d.device)
     for keys, vals, live in d.ag_levels():
         total = total + torch.where(_in_range(keys, probe, live), vals[..., 0], 0).sum()
-    return total
+    return total if d.mesh is None else _all_reduce(total, "sum")
 
 
 # -------------------------------------------------------------- index
@@ -407,15 +528,20 @@ def index_step(d: DistStore, program, lo, hi, combine: str, top_k: int = 128,
     rev_ts shared by distinct rows costs a wasted candidate, never a
     wrong result. Returns int32 scalars (count, truncated, candidates)
     and the per-tablet top-k (ts, cols) as scan_step does; truncated > 0
-    means a slab overflowed and the count is a lower bound."""
+    means a slab overflowed and the count is a lower bound. On a mesh the
+    three scalars are summed over the ranks in one all-reduce and the
+    slates all-gathered."""
     levels, truncated, candidates = _gather_candidates(d, lo, hi, combine, max_postings,
                                                        max_rows)
     hits = filter_scan_levels([lv[1] for lv in levels], program)
     parts = [_filter_topk(r_rev, r_cols, hit & valid, top_k)
              for (r_rev, r_cols, valid, _, _), hit in zip(levels, hits)]
     count, out_ts, out_cols = _merged_slates(parts, top_k)
-    return (count.sum(dtype=torch.int32), out_ts, out_cols,
-            truncated.sum(dtype=torch.int32), candidates.sum(dtype=torch.int32))
+    total, truncated, candidates = _mesh_sums(d, count.sum(dtype=torch.int32),
+                                              truncated.sum(dtype=torch.int32),
+                                              candidates.sum(dtype=torch.int32))
+    out_ts, out_cols = _mesh_slates(d, out_ts, out_cols)
+    return total, out_ts, out_cols, truncated, candidates
 
 
 # -------------------------------------------------------- aggregation
@@ -486,15 +612,17 @@ def aggregate_step(d: DistStore, program, value_table, grouping: ResolvedGroupin
     range [rts_lo, rts_hi) and the filter program (one filter_scan launch
     for all levels) select the rows, and _segment_aggregate reduces them
     over the tablets and run slots in one scatter (the reference's
-    per-tablet segments and psum, pmin or pmax over the mesh). Returns the
-    dense (n_groups,) aggs and int64 cnts."""
+    per-tablet segments), then over the mesh with an all-reduce of SUM, MIN
+    or MAX (its psum, pmin or pmax). Returns the dense (n_groups,) aggs and
+    int64 cnts."""
     probe = torch.tensor([rts_lo, rts_hi], dtype=torch.int32).to(d.device)
     levels = d.ev_levels()
     hits = filter_scan_levels([cols for _, cols, _ in levels], program)
     parts = [_segment_aggregate(rev, cols, hit & _in_range(rev, probe, live), grouping,
                                 value_table)
              for (rev, cols, live), hit in zip(levels, hits)]
-    return _combine_level_aggs(parts, grouping.spec.op)
+    op = grouping.spec.op
+    return _mesh_aggs(d, *_combine_level_aggs(parts, op), op)
 
 
 def index_aggregate_step(d: DistStore, program, value_table, grouping: ResolvedGrouping,
@@ -505,14 +633,18 @@ def index_aggregate_step(d: DistStore, program, value_table, grouping: ResolvedG
     selective aggregate reduces only the candidate rows. The FULL tree
     re-checks every candidate row. Returns the dense (n_groups,) aggs and
     int64 cnts, and the int32 scalars truncated (> 0: a slab overflowed,
-    the caller reruns the exact aggregate step) and candidates."""
+    the caller reruns the exact aggregate step) and candidates, all
+    combined over the mesh as aggregate_step and index_step combine them."""
     levels, truncated, candidates = _gather_candidates(d, lo, hi, combine, max_postings,
                                                        max_rows)
     hits = filter_scan_levels([lv[1] for lv in levels], program)
     parts = [_segment_aggregate(r_rev, r_cols, hit & valid, grouping, value_table)
              for (r_rev, r_cols, valid, _, _), hit in zip(levels, hits)]
-    aggs, cnts = _combine_level_aggs(parts, grouping.spec.op)
-    return aggs, cnts, truncated.sum(dtype=torch.int32), candidates.sum(dtype=torch.int32)
+    op = grouping.spec.op
+    aggs, cnts = _mesh_aggs(d, *_combine_level_aggs(parts, op), op)
+    truncated, candidates = _mesh_sums(d, truncated.sum(dtype=torch.int32),
+                                       candidates.sum(dtype=torch.int32))
+    return aggs, cnts, truncated, candidates
 
 
 # ---------------------------------------------------------- execution
@@ -617,7 +749,7 @@ class QueryRun:
                                         dist=self.dist, program=self.program,
                                         profile=self.profile)
             sp.set(rows=blk.count)
-        runtime = time.perf_counter() - t0
+        runtime = _agreed_seconds(self.dist, time.perf_counter() - t0)
         if self.batcher is None:
             self._single_done = True
         else:
@@ -946,7 +1078,7 @@ class DistQueryProcessor:
             lo, hi = batcher.next_range()
             t0 = time.perf_counter()
             count, ts, cols = self.scan_range(tree, int(lo), int(hi), dist=d, program=program)
-            batcher.update(time.perf_counter() - t0, count)
+            batcher.update(_agreed_seconds(d, time.perf_counter() - t0), count)
             results.append((count, ts, cols))
             if stats is not None:
                 stats.batches += 1
@@ -955,14 +1087,16 @@ class DistQueryProcessor:
 
 
 def from_event_store(store: EventStore, capacity: Optional[int] = None, n_tablets: int = 1,
-                     device="cuda") -> DistStore:
+                     device="cuda", mesh=None) -> DistStore:
     """Re-shard a host EventStore's event tables onto the device by row
     hash (the paper's uniform random sharding), as a bulk replay through a
     DistIngestPlane: its appends and compactions build the sorted tablets
     and the index and aggregate families, and compact() folds everything
     into the base. Returns a base-only snapshot. Raises ValueError before
     the replay when ``capacity`` cannot hold the fullest tablet; by
-    default the capacity is that tablet's row count."""
+    default the capacity is that tablet's row count. On a mesh every rank
+    replays the same host store through the mesh plane and keeps its own
+    n_tablets / R of the global tablets."""
     from .dist_ingest import DistIngestPlane
 
     rows_k, rows_c = [], []
@@ -985,15 +1119,19 @@ def from_event_store(store: EventStore, capacity: Optional[int] = None, n_tablet
     # Per-tablet flush triggers are exact, so fixed slabs suffice: a tablet
     # majors every max_runs * mem_rows of its own rows.
     plane = DistIngestPlane.for_store(store, capacity=cap, n_tablets=n_tablets, mem_rows=8192,
-                                      max_runs=8, append_rows=2048, device=device)
+                                      max_runs=8, append_rows=2048, device=device, mesh=mesh)
     plane.ingest(rk[:, 0].astype(np.int32), rc, assign)
     plane.compact()
     tel = plane.telemetry()
     overflow = sum(int(v.sum()) for k, v in tel.items() if k.endswith("overflow"))
+    if mesh is not None:  # every rank must take the same branch below
+        local = torch.tensor(overflow, dtype=torch.int64).to(plane.device)
+        overflow = int(_all_reduce(local, "sum"))
     if overflow:  # the pre-check above bounds this; a plane-side loss must not pass
         raise ValueError(f"tablet overflow: {overflow} rows over capacity {cap}")
     s = plane.state
     has_ix = len(plane.families) > 1
+    g = plane.group
     return DistStore(
         rev_ts=s["ev_base_k"], cols=s["ev_base_c"], counts=s["ev_base_n"],
         ix_keys=s["ix_base_k"] if has_ix else None,
@@ -1002,4 +1140,5 @@ def from_event_store(store: EventStore, capacity: Optional[int] = None, n_tablet
         ag_vals=s["ag_base_c"] if has_ix else None,
         ag_counts=s["ag_base_n"] if has_ix else None,
         agg_bucket_s=plane.programs.agg_bucket_s if has_ix else None,
+        mesh=mesh, tablets=None if mesh is None else (g.t0, g.t0 + g.n_tablets),
     )

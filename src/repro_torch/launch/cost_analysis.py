@@ -20,8 +20,12 @@ FlopCounterMode is) would count the global op, the whole product.
 * Peak memory: the high-water mark of the bytes of live storages (a view
   shares its base's), the arguments included.
 * Collectives: bytes (the operand, as the reference counts it) and
-  counts by op from the functional collectives DTensor issues; the
-  counts also from torch.distributed.tensor.debug.CommDebugMode.
+  counts by op from the functional collectives DTensor (or the store's
+  mesh steps) issue; the counts also from
+  torch.distributed.tensor.debug.CommDebugMode.
+* Charged work: what a traced function cannot show (a ctypes kernel
+  launch) it states with ``charge`` and makes its outputs ``unseen``;
+  the record lists it under ``charged_by_op``.
 
 ``roofline_terms`` keeps the reference's signature and keys, with the
 H100 SXM data sheet's rates (not measured): 989.4e12 dense bf16 FLOP/s,
@@ -101,6 +105,7 @@ class LocalCost(TorchDispatchMode):
         self._storages: Dict[int, list] = {}  # storage -> [bytes, tensors seen on it]
         self._tensors = set()
         self.paused = 0
+        self.charged: Dict[str, Dict[str, int]] = {}
 
     def hold(self, t: torch.Tensor) -> None:
         """Count ``t``'s storage as live while a tensor seen on it lives.
@@ -152,6 +157,39 @@ class LocalCost(TorchDispatchMode):
         for t in outs:
             self.hold(t)
         return out
+
+
+def _active() -> LocalCost:
+    """The innermost LocalCost on the dispatch-mode stack."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    modes = [m for m in _get_current_dispatch_mode_stack() if isinstance(m, LocalCost)]
+    if not modes:
+        raise RuntimeError("no LocalCost is counting")
+    return modes[-1]
+
+
+def charge(name: str, nbytes: int, flops: int = 0) -> None:
+    """Count ``nbytes`` of HBM traffic and ``flops`` for work the trace
+    cannot see (a kernel launched through ctypes), under ``name``."""
+    cost = _active()
+    cost.bytes += nbytes
+    cost.flops += flops
+    entry = cost.charged.setdefault(name, {"bytes": 0, "flops": 0, "calls": 0})
+    entry["bytes"] += nbytes
+    entry["flops"] += flops
+    entry["calls"] += 1
+
+
+@contextlib.contextmanager
+def unseen():
+    """Ops inside are not counted (a charged kernel's stand-in outputs)."""
+    cost = _active()
+    cost.paused += 1
+    try:
+        yield
+    finally:
+        cost.paused -= 1
 
 
 @contextlib.contextmanager
@@ -211,7 +249,8 @@ def measure(fn: Callable, *args) -> Dict[str, Any]:
                    "peak_bytes": cost.peak},
         "cost": {"flops_per_device": float(cost.flops), "flops_by_op": dict(cost.flops_by_op),
                  "bytes_per_device": float(cost.bytes),
-                 "bytes_lower_per_device": float(arg_bytes), "local_ops": cost.ops},
+                 "bytes_lower_per_device": float(arg_bytes), "local_ops": cost.ops,
+                 "charged_by_op": {k: dict(v) for k, v in cost.charged.items()}},
         "collectives": {"total_bytes": total_coll,
                         "bytes_by_op": dict(cost.collective_bytes),
                         "count_by_op": dict(cost.collective_count),

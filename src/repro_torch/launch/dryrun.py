@@ -16,6 +16,12 @@ launch/cost_analysis.py's. Results go to experiments/dryrun_torch/<arch>
 __<shape>__<mesh>.json; present cells are skipped unless --force, and a
 failing cell writes FAIL__<arch>__<shape>__<mesh>.json. The fake group
 is destroyed after its cells.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --store-cells
+
+runs only the two llcysa-store cells (run_store_cell): one rank's
+tablet scan step of the store on the production mesh, every rank a
+tablet server, written to llcysa-store__<shape>__<mesh>.json.
 """
 from __future__ import annotations
 
@@ -159,6 +165,99 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, opts=None) -> dict:
                        cell=(arch, shape_name, mesh_kind))
 
 
+# How a store cell counts the filter_scan kernel, recorded in the cell.
+FILTER_CHARGE_RULE = (
+    "filter_scan is a ctypes launch a fake trace cannot enter: the trace runs a shape-only "
+    "stub in its place and charges the bytes the launch reads and writes, rows x (4 F + 1) "
+    "(the int32 codes in, one bool a row out), with 0 FLOPs")
+
+
+@contextlib.contextmanager
+def _filter_charged():
+    """Inside, core/dist_query's filter call is a stub: empty bool masks of
+    the right shapes, uncounted, with each launch charged by
+    FILTER_CHARGE_RULE."""
+    import torch
+
+    from ..core import dist_query
+    from ..launch import cost_analysis
+
+    real = dist_query.filter_scan_levels
+
+    def stub(levels, program):
+        out = []
+        for cols in levels:
+            rows = cols.numel() // cols.shape[-1]
+            cost_analysis.charge("filter_scan", rows * (cols.element_size() * cols.shape[-1] + 1))
+            with cost_analysis.unseen():
+                out.append(torch.empty(cols.shape[:-1], dtype=torch.bool, device=cols.device))
+        return out
+
+    dist_query.filter_scan_levels = stub
+    try:
+        yield
+    finally:
+        dist_query.filter_scan_levels = real
+
+
+def run_store_cell(mesh_kind: str, rows_per_tablet: int = 4_000_000) -> dict:
+    """The paper's own system on the production mesh: one rank's tablet scan
+    step (filter, count, top-k; the count all-reduced and the slates
+    all-gathered) over a base of ``rows_per_tablet`` rows of the web-proxy
+    schema, every rank a tablet server (4M rows x 12 fields a tablet is
+    about 1B rows, 200 GB, on one pod). Traced on fake tensors; needs a
+    fake process group of the mesh's ranks (``fake_world``)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..core import And, Eq, EventStore, Not, web_proxy_schema
+    from ..core.dist_query import DistStore, dist_store_shapes, scan_step, tablet_specs
+    from ..core.filter import compile_tree
+    from ..distributed.sharding import local_shape
+    from ..kernels.filter_scan import program_tensors
+    from ..launch import cost_analysis
+    from ..launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi_pod"), device_type="cpu")
+    n_chips = mesh.size()
+    store = EventStore(web_proxy_schema(), n_shards=4, device="cpu")  # schema carrier
+    store.ingest([0, 1], {"domain": ["a.com", "b.com"], "method": ["GET", "POST"],
+                          "status": ["200", "404"]})
+    program = program_tensors(compile_tree(store, And(Eq("domain", "a.com"),
+                                                      Not(Eq("status", "404")))),
+                              torch.device("cpu"))
+    shapes = dist_store_shapes(mesh, rows_per_tablet, store.schema.n_fields)
+    specs = tablet_specs(mesh)
+    rank = torch.distributed.get_rank()
+
+    def step(rev_ts, cols, counts):
+        tl = rev_ts.shape[0]
+        d = DistStore(rev_ts=rev_ts, cols=cols, counts=counts, mesh=mesh,
+                      tablets=(rank * tl, (rank + 1) * tl))
+        return scan_step(d, program, 0, int(torch.iinfo(torch.int32).max))
+
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True), _filter_charged():
+        args = [torch.empty(local_shape(shapes[k].shape, specs[k], mesh), dtype=shapes[k].dtype)
+                for k in ("rev_ts", "cols", "counts")]
+        rec = cost_analysis.measure(step, *args)
+    t_trace = time.perf_counter() - t0
+    rec.pop("out")
+    cost = rec["cost"]
+    terms = cost_analysis.roofline_terms(cost["flops_per_device"], cost["bytes_per_device"],
+                                         rec["collectives"]["total_bytes"])
+    terms["memory_lower_s"] = cost["bytes_lower_per_device"] / cost_analysis.HBM_BW
+    return {
+        "arch": "llcysa-store", "shape": f"scan_{rows_per_tablet * n_chips // 10**6}M_rows",
+        "mesh": mesh_kind, "n_chips": int(n_chips),
+        "mesh_shape": dict(zip(mesh.mesh_dim_names, map(int, mesh.shape))),
+        "kind": "scan", "rows_per_tablet": rows_per_tablet, "trace_s": round(t_trace, 2),
+        "torch": torch.__version__, **rec, "roofline": terms,
+        "filter_scan_charge": {**cost["charged_by_op"].get("filter_scan", {}),
+                               "rule": FILTER_CHARGE_RULE},
+    }
+
+
 def summary(rec: dict) -> str:
     r = rec["roofline"]
     return (f"{rec['arch']:22s} {rec['shape']:12s} {rec['mesh']:10s} "
@@ -177,10 +276,24 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default=None, choices=[None, "single_pod", "multi_pod"])
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=str(RESULTS_DIR))
+    ap.add_argument("--store-cells", action="store_true",
+                    help="run only the two llcysa-store cells")
     args = ap.parse_args(argv)
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.store_cells:
+        for mesh_kind in ("single_pod", "multi_pod"):
+            with fake_world(MESH_RANKS[mesh_kind]):
+                rec = run_store_cell(mesh_kind)
+            (out_dir / f"llcysa-store__{rec['shape']}__{mesh_kind}.json").write_text(
+                json.dumps(rec, indent=1))
+            r = rec["roofline"]
+            print(f"OK  llcysa-store {rec['shape']} {mesh_kind} trace={rec['trace_s']:.1f}s "
+                  f"peak={rec['memory']['peak_bytes'] / 2**30:.2f}GiB "
+                  f"comp={r['compute_s']:.2e}s mem={r['memory_s']:.2e}s "
+                  f"coll={r['collective_s']:.2e}s", flush=True)
+        return
     cells = plan_cells(args.arch, args.shape, args.mesh)
     print(f"dry-run: {len(cells)} cells on fake process groups", flush=True)
     n_ok = n_skip = n_fail = 0

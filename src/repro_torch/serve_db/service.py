@@ -111,6 +111,11 @@ class QueryService:
         compactor: bool = True,
         start: bool = True,
     ):
+        if getattr(plane, "mesh", None) is not None:
+            # Its threads would schedule each rank's queries, publishes and
+            # compactions apart, and the ranks' collectives would not pair.
+            raise ValueError("QueryService serves a meshless plane; a mesh plane's "
+                             "queries run on every rank in step (DistQueryProcessor)")
         self.store = store
         self.plane = plane
         self.proc = DistQueryProcessor(store, plane=plane, top_k=top_k, w=w,
