@@ -26,8 +26,8 @@ no result line):
              host QueryProcessor on the CPU and on the card and from
              aggregate_range on the CPU plane and the card plane, on a scan
              plan and an index plan.
-  main path  twelve paths at full size, each with every kernel launch count
-             zeroed just before it and read just after:
+  main path  thirteen paths at full size, each with every kernel launch
+             count zeroed just before it and read just after:
              1. the paper's §IV-A ingest loop and §IV-B scans: 4,194,304
                 synthetic web-proxy events through DistBatchWriter into 64
                 tablets of capacity 131,072 (mem_rows 4096, max_runs 4);
@@ -300,6 +300,30 @@ no result line):
                 activity, NCCL's included), in turns meshless, mesh, mesh,
                 meshless. [store-mesh] lines, and the peak allocated
                 memory with both planes.
+            13. the serve plane and threaded writers on a mesh, in path
+                12's process group and mesh: the plane is built with a
+                control log (core/spmd.py; rank 0 the controller, here the
+                only rank). 13a: path 4's 4,194,304 pre-encoded rows by W =
+                4 writer threads into a mesh plane of G = 4 groups at path
+                4's sizes (the full 3.3 GB plane); rows conserved, drained
+                with compact_step, the four schemes' totals on the tiers
+                and A AND 404 equal to paths 1-2 (path 4's G = 4 plane
+                gives the same); rows/s beside path 4's G = 4 x 4-thread
+                rate. 13b: path 5's traffic on that plane: S = 4 sessions
+                run the mix once (counts equal paths 1-2, the aggregate
+                path 3's bit for bit, densities the generated counts), then
+                SERVE_MESH_ROUNDS rounds while W = 2 writers re-send path
+                5b's own events paced as in 5b (counts bounded, tier-A
+                batched_scan never falls per session), then the tiers' and
+                A AND 404's counts equal 5a's plus the appended rows; the
+                compactor drains the plane and close() sends the log's stop
+                record. TTFR p50/p99 per scheme, queries/s and ingest
+                rows/s while serving are printed beside path 5's, and the
+                log's records by kind and bytes sent. 13c: `python -m
+                repro_torch.serve_db --mesh dev` in-process in the same
+                group, as path 5's daemon run. [serve-mesh] lines.
+                merge_runs, filter_scan, merge_intersect and
+                aggregate_combine must launch.
              Paths 1-3 also run the Cmp and Match filter nodes:
              domain = A AND bytes_out < 1000 on all four schemes and on
              path 3 with spec (a), Match(domain, "d0000") (the ten most
@@ -1212,6 +1236,57 @@ class GcPauses:
         gc.callbacks.remove(self._hook)
 
 
+class MemoryPhases:
+    """Device memory by phase of a serve path on ``plane``: at each mark
+    the bytes allocated, the peak since the last mark (the peak then
+    restarts), and how many DistStore snapshots are alive and the bytes
+    of device storage they hold beyond the plane's own state (sealed
+    memtable copies, and levels a compaction replaced that a snapshot
+    still holds), found through the garbage collector."""
+
+    def __init__(self, dev, plane):
+        import torch
+
+        self.dev, self.plane = dev, plane
+        torch.cuda.reset_peak_memory_stats(dev)
+        self.marks = [{"phase": "start", "allocated_bytes": torch.cuda.memory_allocated(dev)}]
+
+    def mark(self, phase):
+        import gc
+
+        import torch
+        from repro_torch.core.dist_query import DistStore
+
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        state = {t.untyped_storage().data_ptr() for g in self.plane.groups
+                 for t in g.state.values()}
+        held, n = {}, 0
+        for o in gc.get_objects():
+            if type(o) is DistStore:  # not isinstance: no __class__ of a proxy is read
+                n += 1
+                for v in vars(o).values():
+                    if isinstance(v, torch.Tensor) and v.is_cuda:
+                        st = v.untyped_storage()
+                        if st.data_ptr() not in state:
+                            held[st.data_ptr()] = st.nbytes()
+        self.marks.append({"phase": phase, "allocated_bytes": torch.cuda.memory_allocated(self.dev),
+                           "peak_bytes": peak, "snapshots": n,
+                           "snapshot_only_bytes": sum(held.values())})
+        torch.cuda.reset_peak_memory_stats(self.dev)
+
+    @property
+    def peak(self):
+        return max(m.get("peak_bytes", 0) for m in self.marks)
+
+    def line(self):
+        start = self.marks[0]["allocated_bytes"]
+        return json.dumps([{"phase": m["phase"], "allocated_over_start": m["allocated_bytes"] - start,
+                            "peak_over_start": m.get("peak_bytes", start) - start,
+                            "snapshots": m.get("snapshots"),
+                            "snapshot_only_bytes": m.get("snapshot_only_bytes")}
+                           for m in self.marks[1:]])
+
+
 def run_query(dq, scheme, tree, label, want):
     """One scheme run over the 4-hour range, with tracing on: time to the
     first batch and to the last, the garbage collector's seconds within
@@ -1669,7 +1744,76 @@ def prom_samples(text):
     return out
 
 
-def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, agg_results):
+def serve_events(seed, size):
+    """Path 5b's appended events, generated and parsed before any timed
+    region (path 13b re-sends them): an eighth of the main path, as
+    SERVE_CHUNKS chunks of (ts, values). More would overflow src_ip's
+    dictionary (2**22 codes) with this source's address space. Returns
+    (chunks, events, chunk rows)."""
+    from repro_torch.pipeline.sources import SyntheticWebProxySource, parse_web_proxy_lines
+
+    n_new = size["events"] // 8
+    chunk = -(-n_new // SERVE_CHUNKS)
+    source = SyntheticWebProxySource(seed=seed + 1)
+    chunks = [parse_web_proxy_lines(source.gen_lines(min(chunk, n_new - off), 0, T_SPAN))
+              for off in range(0, n_new, chunk)]
+    return chunks, n_new, chunk
+
+
+def serve_under_ingest(svc, store, plane, chunks, chunk, mixes, name, spec, writer_base):
+    """SERVE_WRITERS DistBatchWriter threads (ids writer_base + w) append
+    ``chunks``, paced by an IngestPacer on the sessions' submits, while
+    the sessions run ``mixes`` (run_sessions). Checks that every chunk
+    was appended; returns the records, the sessions' seconds and
+    sessions, and the writers' numbers (ingest and append seconds, their
+    (start, end) per chunk, the writers' close times, the pacer's wait)."""
+    import threading
+
+    from repro_torch.core.dist_ingest import DistBatchWriter
+
+    pacer = IngestPacer(sum(map(len, mixes)), len(chunks))
+    writer_errors = []
+    writer_done = [0.0] * SERVE_WRITERS
+    appends = []  # (start, end) of every chunk's add, flush included
+
+    def write(w):
+        try:
+            wr = DistBatchWriter(store, plane, batch_rows=chunk, writer_id=writer_base + w)
+            while (j := pacer.claim()) is not None:
+                a0 = time.perf_counter()
+                wr.add(*chunks[j])
+                appends.append((a0, time.perf_counter()))
+            wr.close()
+            writer_done[w] = time.perf_counter()
+        except BaseException as e:  # re-raised below, after the join
+            writer_errors.append(e)
+            pacer.abort()
+
+    writers = [threading.Thread(target=write, args=(w,), name=f"{name}-writer-{w}")
+               for w in range(SERVE_WRITERS)]
+    t0 = time.perf_counter()
+    for t in writers:
+        t.start()
+    try:
+        recs, secs, sess = run_sessions(svc, mixes, name, spec, on_submit=pacer.note_submit)
+    except BaseException:
+        pacer.abort()  # release writers waiting for submits that never come
+        raise
+    finally:
+        for t in writers:
+            t.join(timeout=600)
+    check(not any(t.is_alive() for t in writers), f"{name}: a writer thread hung")
+    if writer_errors:
+        raise writer_errors[0]
+    check(pacer.claimed == len(chunks) and len(appends) == len(chunks),
+          f"{name}: {len(appends)} of {len(chunks)} chunks appended")
+    return recs, secs, sess, {"ingest_s": max(writer_done) - t0,
+                              "append_s": sum(b - a for a, b in appends), "appends": appends,
+                              "writer_done": writer_done, "wait_s": pacer.wait_s}
+
+
+def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, agg_results,
+              events):
     """Path 5: the serve plane on the drained G = 4 plane of path 4. One
     QueryService (background compactor on) and a /metrics endpoint on
     127.0.0.1. 5a: S sessions run the mix once with flight recording and
@@ -1684,16 +1828,13 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
     the writers close, each tier's count is 5a's plus the appended
     events'; the compactor drains the plane; fold sources, session
     telemetry, the /metrics scrape and the profiles' tiling are checked.
-    Returns the report with the majors and fold increments path 5 ran."""
-    import threading
+    Returns the report with the majors and fold increments path 5 ran.
+    ``events`` are serve_events()."""
     from urllib.request import urlopen
 
-    import numpy as np
     import torch
     from repro_torch import obs
     from repro_torch.core import Eq
-    from repro_torch.core.dist_ingest import DistBatchWriter
-    from repro_torch.pipeline.sources import SyntheticWebProxySource, parse_web_proxy_lines
     from repro_torch.serve_db import QueryService
 
     spec_a = agg_specs()["a count/status/hour"]
@@ -1705,20 +1846,14 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
     ttfr_before = sum(c["count"] for c in ttfr_hist.cells().values())
     folds_before = dict(plane.fold_events)
     check(not plane.has_unfolded(), "path 5: the plane of path 4 is not drained")
-    # Path 5b's events, generated and parsed before any timed region.
-    # An eighth of the main path: more would overflow src_ip's dictionary
-    # (2**22 codes) with this source's address space.
-    n_new = size["events"] // 8
-    chunk = -(-n_new // SERVE_CHUNKS)
-    source = SyntheticWebProxySource(seed=seed + 1)
-    chunks = [parse_web_proxy_lines(source.gen_lines(min(chunk, n_new - off), 0, T_SPAN))
-              for off in range(0, n_new, chunk)]
+    chunks, n_new, chunk = events
     new_dom = Counter(d for _, v in chunks for d in v["domain"])
     new_pair = Counter(p for _, v in chunks for p in zip(v["domain"], v["status"]))
     final = {k: base[k] + v for k, v in serve_counts(tiers, new_dom, new_pair).items()}
 
     report = {"sessions": n, "writers": SERVE_WRITERS, "rounds": SERVE_ROUNDS,
               "appended_events": n_new, "chunk": chunk}
+    memory = MemoryPhases(dev, plane)
     svc = QueryService(store, plane)
     endpoint = obs.serve_prometheus()
     all_records, all_sessions = [], []
@@ -1757,6 +1892,7 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
             report["5a"] = phase_stats(recs_5a, secs_5a, gcs)
             report["5a"]["device_lock_held_s"] = lock_books(lock_5a, lock0)
             report["flight_overhead"] = {"flight_on_s": secs_5a, "both_off_s": off_s}
+            memory.mark("5a")
             log("serve", f"5a: {len(recs_5a)} queries ({n} sessions and a host session) in "
                 f"{secs_5a:.3f} s with flight recording on, {off_s:.3f} s with both off; every "
                 f"count equals paths 1-2, aggregates path 3")
@@ -1766,47 +1902,13 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
             majors_before = plane.fold_events.get("ingest", 0)
             group_locks0 = [g.lock.snapshot() for g in plane.groups]
             mixes_5b = [rotated(mix, i, n) * SERVE_ROUNDS for i in range(n)]
-            pacer = IngestPacer(sum(map(len, mixes_5b)), len(chunks))
-            writer_errors = []
-            writer_done = [0.0] * SERVE_WRITERS
-            appends = []  # (start, end) of every chunk's add, flush included
-
-            def write(w):
-                try:
-                    wr = DistBatchWriter(store, plane, batch_rows=chunk, writer_id=10 + w)
-                    while (j := pacer.claim()) is not None:
-                        a0 = time.perf_counter()
-                        wr.add(*chunks[j])
-                        appends.append((a0, time.perf_counter()))
-                    wr.close()
-                    writer_done[w] = time.perf_counter()
-                except BaseException as e:  # re-raised below, after the join
-                    writer_errors.append(e)
-                    pacer.abort()
-
-            writers = [threading.Thread(target=write, args=(w,), name=f"5b-writer-{w}")
-                       for w in range(SERVE_WRITERS)]
-            t0 = time.perf_counter()
-            for t in writers:
-                t.start()
-            try:
-                recs_5b, secs_5b, sess = run_sessions(svc, mixes_5b, "5b", spec_a,
-                                                      on_submit=pacer.note_submit)
-            except BaseException:
-                pacer.abort()  # release writers waiting for submits that never come
-                raise
-            finally:
-                for t in writers:
-                    t.join(timeout=600)
+            recs_5b, secs_5b, sess, wr = serve_under_ingest(svc, store, plane, chunks, chunk,
+                                                            mixes_5b, "5b", spec_a, 10)
             all_records += recs_5b
             all_sessions += sess
-            check(not any(t.is_alive() for t in writers), "path 5b: a writer thread hung")
-            if writer_errors:
-                raise writer_errors[0]
-            check(pacer.claimed == len(chunks) and len(appends) == len(chunks),
-                  f"path 5b: {len(appends)} of {len(chunks)} chunks appended")
-            ingest_s = max(writer_done) - t0
-            append_s = sum(b - a for a, b in appends)
+            memory.mark("5b")
+            ingest_s, append_s, appends = wr["ingest_s"], wr["append_s"], wr["appends"]
+            writer_done = wr["writer_done"]
             lock_5b = svc._device_lock.snapshot()
             # Seconds publishes and appends waited for the group locks,
             # and held them, over 5b.
@@ -1841,7 +1943,7 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
             report["5b"].update(
                 ingest_rows_per_s=n_new / ingest_s, ingest_s=ingest_s,
                 append_s=append_s, append_rows_per_s=n_new / append_s,
-                writer_ticket_wait_s=pacer.wait_s,
+                writer_ticket_wait_s=wr["wait_s"],
                 queries_submitted_during_ingest=len(recs_5b) - len(late),
                 queries_overlapping_an_append=in_append, tier_a_counts_seen=len(seen_a),
                 device_lock_held_s=lock_books(lock_5b, lock_5a),
@@ -1851,7 +1953,7 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
             log("serve", f"5b: {len(recs_5b)} queries in {secs_5b:.3f} s, every one submitted "
                 f"before the last of {SERVE_WRITERS} writers closed and {in_append} waiting for "
                 f"their first result while a chunk was appended; the writers appended {n_new} events in {len(chunks)} chunks "
-                f"in {ingest_s:.3f} s ({append_s:.3f} s appending, {pacer.wait_s:.3f} s waiting "
+                f"in {ingest_s:.3f} s ({append_s:.3f} s appending, {wr['wait_s']:.3f} s waiting "
                 f"for the sessions); {len(seen_a)} distinct tier A counts; counts bounded and "
                 f"monotone")
 
@@ -1878,6 +1980,7 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
             drain_s = time.perf_counter() - t0
             check(not plane.has_unfolded(), "path 5c: the compactor never drained the plane")
             torch.cuda.synchronize(dev)
+            memory.mark("5c")
         lock_5c = svc._device_lock.snapshot()
         tel = plane.telemetry()
         check(set(tel["fold_events"]) <= SERVE_ALLOWED_FOLDS,
@@ -1934,7 +2037,9 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
         first_results=len(firsts), metrics_bytes=len(body),
         profile_worst_gap=gaps[worst], profile_worst_raw_gap=max(raw),
         profile_sub_ms=len(sub_ms), profile_sub_ms_worst_gap_s=max(sub_ms, default=0.0),
-        gc_s=gcs.s, gc_passes=gcs.passes)
+        gc_s=gcs.s, gc_passes=gcs.passes, memory=memory.marks, memory_line=memory.line())
+    log("serve", f"device memory by phase, bytes over the {memory.marks[0]['allocated_bytes']} "
+        f"allocated at the start: {memory.line()}")
     for phase in ("5a_flight_off", "5a", "5b", "5b_meeting_an_append"):
         st = report[phase]
         if st is None:
@@ -1980,10 +2085,11 @@ def run_serve(store, plane, dev, size, seed, tiers, domain_counts, pair_counts, 
     return report
 
 
-def run_daemon(dev):
+def run_daemon(dev, mesh=False):
     """`python -m repro_torch.serve_db` in-process on the card at the
     reference test's small size with a tight TTFR SLO: exit code 0, both
-    header lines, and an incident bundle whose trace validates."""
+    header lines, and an incident bundle whose trace validates. With
+    ``mesh``, `--mesh dev` in this process's group (path 13c)."""
     import contextlib
     import io
     import shutil
@@ -2000,7 +2106,8 @@ def run_daemon(dev):
             rc = daemon_main(["--device", str(dev), "--rows", "1200", "--sessions", "2",
                               "--writers", "1", "--duration", "1.5", "--incident-dir", inc,
                               "--ttfr-slo", "0.000001", "--window", "5", "--tick", "0.1",
-                              "--groups", "1", "--tablets-per-device", "2"])
+                              "--groups", "1", "--tablets-per-device", "2"]
+                             + (["--mesh", "dev"] if mesh else []))
     finally:
         obs.flight_disable()
         obs.flight_clear()
@@ -2018,7 +2125,8 @@ def run_daemon(dev):
     check(problems == [] and any(e.get("ph") == "X" for e in trace["traceEvents"]),
           f"daemon incident trace invalid: {problems[:5]}")
     summary = [ln for ln in text.splitlines() if ln.startswith("daemon:")]
-    log("daemon", f"exit 0 in {secs:.3f} s; {len(bundles)} ttfr_p99 bundle(s), trace of "
+    log("serve-mesh" if mesh else "daemon", f"{'13c: --mesh dev: ' if mesh else ''}exit 0 "
+        f"in {secs:.3f} s; {len(bundles)} ttfr_p99 bundle(s), trace of "
         f"{len(trace['traceEvents'])} events validates; {summary[0] if summary else ''}")
     return {"seconds": secs, "bundles": len(bundles), "trace_events": len(trace["traceEvents"]),
             "stdout": text.splitlines()[:4]}
@@ -3365,7 +3473,7 @@ def store_mesh_cases(store, dq, tiers, queries):
 
 
 def run_store_mesh(store, streams, size, tiers, queries, dev, zero_launches, read_launches,
-                   smi):
+                   smi, then=None):
     """Path 12: the store on a (data=1, model=1) DeviceMesh of the card (a
     one-rank NCCL group, destroyed after). Path 4's pre-encoded,
     pre-hashed rows go serially into a meshless plane and into a mesh plane
@@ -3374,8 +3482,9 @@ def run_store_mesh(store, streams, size, tiers, queries, dev, zero_launches, rea
     specs, and run_scheme's first batch and total equal for the four
     schemes. Then each step's ms with dispatch and device ms, with the mesh
     and without. The store cells of the dry-run run beside the checks,
-    after the timed ingests and before the timed steps. Returns the report
-    and the path's launches (counted up to the timing)."""
+    after the timed ingests and before the timed steps. ``then(mesh)``
+    (path 13) runs last, in the same process group. Returns the report, the
+    path's launches (counted up to the timing) and what ``then`` returned."""
     import gc
 
     import torch
@@ -3439,11 +3548,14 @@ def run_store_mesh(store, streams, size, tiers, queries, dev, zero_launches, rea
             log("store-mesh", f"{kind} step " + json.dumps(row) + f" ({smi})")
         report["steps"] = timed
         del d0, d1, cases, planes
+        gc.collect()
+        torch.cuda.empty_cache()
+        after = then(mesh) if then is not None else None
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    return report, launches
+    return report, launches, after
 
 
 def store_mesh_checks(report, store, planes, size, tiers, queries, dev, mesh, read_launches):
@@ -3508,6 +3620,227 @@ def store_mesh_checks(report, store, planes, size, tiers, queries, dev, mesh, re
     log("store-mesh", f"peak allocated {report['peak_allocated_bytes']} bytes with both planes; "
         f"state bytes {json.dumps(report['state_bytes'])}")
     return launches
+
+
+SERVE_MESH_ROUNDS = SERVE_ROUNDS  # path 13b's rounds under ingest: cut these, never the size
+
+
+def spmd_counts():
+    """The control log's records by kind and bytes sent, from the
+    registry, summed over every log of this process."""
+    from repro_torch.obs import get_registry
+
+    reg = get_registry()
+    records = Counter()
+    for key, v in reg.counter("spmd_records_total").cells().items():
+        labels = dict(key)
+        if labels.get("role") == "leader":
+            records[labels["kind"]] += int(v)
+    return dict(records), int(reg.counter("spmd_bytes_total").total())
+
+
+def run_serve_mesh(mesh, store, streams, size, tiers, domain_counts, pair_counts, agg_results,
+                   events, meshless, dev, zero_launches, read_launches, smi):
+    """Path 13: the serve plane on a mesh plane driven through a control
+    log (core/spmd.py), rank 0 the controller, inside path 12's one-rank
+    process group on ``mesh``. 13a: path 4's W = 4 writer streams, on
+    threads, into a mesh plane of G = 4 groups at path 4's sizes; rows
+    conserved, drained with compact_step, the four schemes' totals on the
+    tiers and A AND 404 equal paths 1-2 (and path 4's G = 4 plane). 13b:
+    path 5's traffic on that plane: S sessions run the mix once (counts
+    equal paths 1-2, the aggregate path 3's bit for bit, the densities the
+    generated counts), then SERVE_MESH_ROUNDS rounds while W = 2 writers
+    re-send path 5b's own events (``events``), paced as in 5b (counts
+    bounded, each session's tier-A batched_scan never falls), then every
+    count of the tiers and A AND 404 equals 5a's plus the appended rows;
+    the compactor drains the plane; close() sends the stop record. 13c:
+    the daemon with --mesh dev in this process group. ``meshless`` is the
+    report of paths 4 and 5, printed beside (None: run alone, nothing
+    beside). Returns the report and the path's launches."""
+    import gc
+
+    import torch
+    from repro_torch.core import And, Eq
+    from repro_torch.core.dist_ingest import DistIngestPlane
+    from repro_torch.core.dist_query import DistQueryProcessor
+    from repro_torch.core.spmd import Controller
+    from repro_torch.serve_db import QueryService
+
+    chunks, n_new, chunk = events
+    n = SERVE_SESSIONS
+    report = {"card": smi, "groups": 4, "writers": len(streams), "sessions": n,
+              "rounds": SERVE_MESH_ROUNDS, "appended_events": n_new}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # What earlier paths keep (path 1's plane and end-of-ingest levels, the
+    # host store on the card), under the peak below.
+    report["allocated_at_start_bytes"] = torch.cuda.memory_allocated(dev)
+    zero_launches()
+    records0, bytes0 = spmd_counts()
+    ctl = Controller(store, timeout_s=600)
+    plane = DistIngestPlane.for_store(
+        store, capacity=size["capacity"], mem_rows=size["mem_rows"], max_runs=size["max_runs"],
+        append_rows=1024, n_groups=4, device=dev, mesh=mesh, control=ctl,
+        tablets_per_device=size["tablets"])
+    memory = MemoryPhases(dev, plane)
+    svc = None
+    try:
+        # 13a: threaded writers on the mesh plane.
+        t0 = time.perf_counter()
+        threaded_ingest(plane, streams)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        memory.mark("13a ingest")
+        tel = plane.telemetry()
+        check(int(tel["rows"].sum()) == size["events"],
+              f"path 13a: {tel['rows'].sum()} rows, {size['events']} appended")
+        check(int(tel["overflow"].sum()) == 0 and int(tel["ix_overflow"].sum()) == 0
+              and int(tel["ag_overflow"].sum()) == 0, "path 13a: tablet overflow")
+        t0 = time.perf_counter()
+        steps = 0
+        while plane.has_unfolded():
+            steps += plane.compact_step()
+        torch.cuda.synchronize(dev)
+        drain_s = time.perf_counter() - t0
+        path4 = meshless["sharded"]["runs"]["G=4, 4 threads"]["rows_per_s"] if meshless \
+            else float("nan")
+        report["13a"] = {"seconds": secs, "rows_per_s": size["events"] / secs,
+                         "path4_g4_rows_per_s": path4,
+                         "blocked_s": plane.blocked_seconds, "majors": plane.fold_events.get(
+                             "ingest", 0), "drain_steps": steps, "drain_s": drain_s,
+                         "locks": [{k: g.lock.snapshot()[k] for k in
+                                    ("name", "total_held_s", "total_wait_s")}
+                                   for g in plane.groups]}
+        dq = DistQueryProcessor(store, plane, device=dev)
+        wants = serve_counts(tiers, domain_counts, pair_counts)
+        totals = {}
+        for label, tree in [(t, Eq("domain", d)) for t, d in tiers.items()] + [
+                ("A and 404", And(Eq("domain", tiers["A"]), Eq("status", "404")))]:
+            for scheme in SCHEMES:
+                got = sum(b.count for b in dq.run_scheme(scheme, 0, T_SPAN, tree))
+                check(got == wants[label], f"path 13a {label} {scheme}: {got} rows, paths 1-2 "
+                      f"(and path 4's G = 4 plane) count {wants[label]}")
+                totals[f"{label} {scheme}"] = got
+        report["13a"]["totals"] = totals
+        del dq
+        memory.mark("13a drain and totals")
+        log("serve-mesh", f"13a: {size['events']} rows by {len(streams)} writer threads into "
+            f"a mesh plane of 4 groups in {secs:.3f} s = {size['events'] / secs:.1f} rows/s "
+            f"(path 4's G = 4 x 4 threads, meshless: {path4:.1f}); drained in "
+            f"{steps} compact_step increments ({drain_s:.3f} s); the four schemes' totals on "
+            f"the tiers and A AND 404 equal paths 1-2 ({smi})")
+
+        # 13b: path 5's traffic on the mesh plane.
+        spec_a = agg_specs()["a count/status/hour"]
+        mix = serve_mix(tiers)
+        new_dom = Counter(d for _, v in chunks for d in v["domain"])
+        new_pair = Counter(p for _, v in chunks for p in zip(v["domain"], v["status"]))
+        final = {k: wants[k] + v for k, v in serve_counts(tiers, new_dom, new_pair).items()}
+        svc = QueryService(store, plane)
+        with GcPauses() as gcs:
+            mixes = [rotated(mix, i, n) for i in range(n)]
+            recs_a, secs_a, _ = run_sessions(svc, mixes, "13b-5a", spec_a)
+            for r in recs_a:
+                check(r["count"] == wants[r["label"]],
+                      f"path 13b {r['session']} {r['scheme']} {r['label']}: {r['count']} rows, "
+                      f"paths 1-2 (and path 5a) count {wants[r['label']]}")
+                if r["res"] is not None:
+                    check(same_aggregates(r["res"], agg_results[(r["label"],
+                                                                 "a count/status/hour")]),
+                          f"path 13b {r['session']} aggregate {r['label']} differs from path 3")
+            memory.mark("13b 5a")
+            mixes_b = [rotated(mix, i, n) * SERVE_MESH_ROUNDS for i in range(n)]
+            recs_b, secs_b, sess, wr = serve_under_ingest(svc, store, plane, chunks, chunk,
+                                                          mixes_b, "13b-5b", spec_a, 20)
+            memory.mark("13b 5b")
+            for r in recs_b:
+                check(wants[r["label"]] <= r["count"] <= final[r["label"]],
+                      f"path 13b under ingest {r['session']} {r['scheme']} {r['label']}: "
+                      f"{r['count']} rows, outside [{wants[r['label']]}, {final[r['label']]}]")
+            for s in sess:
+                a = [r["count"] for r in recs_b if r["session"] == s.name
+                     and r["label"] == "A" and r["scheme"] == "batched_scan"]
+                check(len(a) == SERVE_MESH_ROUNDS and all(y >= x for x, y in zip(a, a[1:])),
+                      f"path 13b {s.name}: tier A batched_scan counts {a} fall")
+            late = [r for r in recs_b if r["q"].submitted_at >= max(wr["writer_done"])]
+            check(not late, f"path 13b: {len(late)} queries submitted after the writers closed")
+            s = svc.session("13b-after")
+            after = [serve_one(s, m, spec_a) for m in mix
+                     if (m[1] == "batched_scan" and m[2] in tiers)
+                     or (m[1] == "batched_index" and m[2] == "A and 404")]
+            s.close()
+            for r in after:
+                check(r["count"] == final[r["label"]],
+                      f"path 13b {r['scheme']} {r['label']}: {r['count']} rows after the "
+                      f"writers closed, want {final[r['label']]}")
+            check(svc.wait_idle(timeout=120), "path 13b: the service never went idle")
+            t0 = time.perf_counter()
+            while plane.has_unfolded() and time.perf_counter() < t0 + 300:
+                time.sleep(0.02)
+            check(not plane.has_unfolded(), "path 13b: the compactor never drained the plane")
+            drain_b = time.perf_counter() - t0
+            torch.cuda.synchronize(dev)
+            memory.mark("13b drain")
+        comp = svc.compactor
+        folds = plane.fold_events
+        svc.close()
+        svc = None
+    finally:
+        if svc is not None:
+            svc.close()
+        ctl.close()  # the log's stop record
+    records, sent = spmd_counts()
+    records = {k: v - records0.get(k, 0) for k, v in records.items()}
+    report["13b"] = {
+        "5a": phase_stats(recs_a, secs_a, gcs), "5b": phase_stats(recs_b, secs_b, gcs),
+        "ingest_rows_per_s": n_new / wr["ingest_s"], "append_rows_per_s": n_new / wr["append_s"],
+        "counts_after": {r["label"]: r["count"] for r in after}, "drain_s": drain_b,
+        "compactor": {"increments": comp.increments, "folds": comp.folds},
+        "fold_events": folds}
+    report["log"] = {"records": records, "records_total": sum(records.values()),
+                     "bytes_sent": sent - bytes0}
+    nan = {"p50_ms": float("nan"), "p99_ms": float("nan")}
+    serve5 = meshless["serve"] if meshless else {
+        p: {"ttfr": {}, "queries_per_s": float("nan"), "ingest_rows_per_s": float("nan"),
+            "append_rows_per_s": float("nan")} for p in ("5a", "5b")}
+    for phase in ("5a", "5b"):
+        st, five = report["13b"][phase], serve5[phase]
+        log("serve-mesh", f"13b {phase} TTFR ms p50/p99 per scheme, mesh [meshless path 5]: "
+            + json.dumps({k: [round(v["p50_ms"], 3), round(v["p99_ms"], 3),
+                              [round(five["ttfr"].get(k, nan)["p50_ms"], 3),
+                               round(five["ttfr"].get(k, nan)["p99_ms"], 3)]]
+                          for k, v in st["ttfr"].items()})
+            + f"; {st['queries_per_s']:.1f} queries/s [{five['queries_per_s']:.1f}] ({smi})")
+    log("serve-mesh", f"13b: ingest {report['13b']['ingest_rows_per_s']:.1f} rows/s while "
+        f"serving [path 5b {serve5['5b']['ingest_rows_per_s']:.1f}], paced "
+        f"({report['13b']['append_rows_per_s']:.1f} rows/s of the append time "
+        f"[{serve5['5b']['append_rows_per_s']:.1f}]); counts after the writers "
+        f"{json.dumps(report['13b']['counts_after'])} equal 5a's plus the appended rows; "
+        f"compactor {json.dumps(report['13b']['compactor'])}, drained in {drain_b:.3f} s "
+        f"({smi})")
+    log("serve-mesh", f"control log: {report['log']['records_total']} records "
+        f"{json.dumps(records)}, {report['log']['bytes_sent']} bytes sent (one rank: no "
+        f"follower to send to)")
+    log("serve-mesh", f"device memory by phase, bytes over the "
+        f"{memory.marks[0]['allocated_bytes']} allocated once the plane was built: "
+        f"{memory.line()}; path 5's on its plane: "
+        f"{meshless['serve']['memory_line'] if meshless else 'not run'} ({smi})")
+    report["memory"] = memory.marks
+    del plane
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["peak_allocated_bytes"] = max(memory.peak, torch.cuda.max_memory_allocated(dev))
+    # 13c: the daemon on a mesh of this process group.
+    report["13c"] = run_daemon(dev, mesh=True)
+    launches = read_launches()
+    log("launches", "path 13 (serve plane on a mesh): " + json.dumps(launches))
+    check(all(launches[k] > 0 for k in ("merge_runs", "filter_scan", "merge_intersect",
+                                        "aggregate_combine")),
+          f"a kernel of path 13 never launched: {launches}")
+    log("serve-mesh", f"peak allocated {report['peak_allocated_bytes']} bytes, of which "
+        f"{report['allocated_at_start_bytes']} allocated before path 13 began ({smi})")
+    return report, launches
 
 
 def host_major_inputs(store, seed):
@@ -3753,9 +4086,10 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
           f"a kernel of path 4 never launched: {launches_4}")
 
     # Path 5: the serve plane on path 4's G = 4 plane, then the daemon.
+    new_events = serve_events(seed, size)
     zero_launches()
     report["serve"] = run_serve(store, g4_plane, dev, size, seed, tiers, domain_counts,
-                                pair_counts, agg_results)
+                                pair_counts, agg_results, new_events)
     launches_5 = read_launches()
     log("launches", "path 5 (serve plane): " + json.dumps(launches_5))
     check(all(v > 0 for v in launches_5.values()), f"a kernel of path 5 never launched: "
@@ -3823,13 +4157,26 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
         ("A and 404", ands["A"]), ("B and 404", ands["B"]), ("B or C", b_or_c),
         cmp_a[:2], match[:2], ("bytes_in>=1e6", Cmp("bytes_in", ">=", 1_000_000)),
         (f"A and bytes_in in {n_in:,}", big_in)]
+    # Path 13, in path 12's process group: the serve plane and threaded
+    # writers on a mesh plane driven through a control log.
     t0 = time.perf_counter()
-    report["store_mesh"], launches_12 = run_store_mesh(
-        store, streams, size, tiers, store_queries, dev, zero_launches, read_launches, smi)
-    report["store_mesh"]["path_seconds"] = time.perf_counter() - t0
-    del streams
+    t13 = [0.0]
+
+    def path_13(mesh):
+        t13[0] = time.perf_counter()
+        return run_serve_mesh(mesh, store, streams, size, tiers, domain_counts, pair_counts,
+                              agg_results, new_events, report, dev, zero_launches,
+                              read_launches, smi)
+
+    report["store_mesh"], launches_12, (report["serve_mesh"], launches_13) = run_store_mesh(
+        store, streams, size, tiers, store_queries, dev, zero_launches, read_launches, smi,
+        then=path_13)
+    report["store_mesh"]["path_seconds"] = t13[0] - t0
+    report["serve_mesh"]["path_seconds"] = time.perf_counter() - t13[0]
+    log("serve-mesh", f"path 13 took {report['serve_mesh']['path_seconds']:.3f} s")
+    del streams, new_events
     paths = (launches_1, launches_2, launches_3, launches_4, launches_5, launches_6, launches_7,
-             launches_8, launches_9, launches_10, launches_11, launches_12)
+             launches_8, launches_9, launches_10, launches_11, launches_12, launches_13)
     launches = {k: sum(p[k] for p in paths) for k in launches_1}
     report["launches"] = {"total": launches,
                           **{f"path_{i}": p for i, p in enumerate(paths, start=1)}}

@@ -44,6 +44,13 @@ so flush triggers and append destinations need no device read. Appends
 write the live memtable slabs in place (a published snapshot holds a
 sealed copy of them, never the slabs); minor, major, fold and seal write
 new tensors, so the base and run slabs a snapshot aliases never change.
+
+On a mesh, every rank must make the same appends, compactions and seals
+in the same order. Lockstep: every rank calls the same API. With a
+control log (core/spmd.py), rank 0 drives the plane from any number of
+threads and each group logs its append (the batch's per-chunk tablet
+counts and, for each follower, its own tablets' rows), compaction and
+seal under its lock; the followers apply the log in order.
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ from . import keypack
 from .device import resolve_device
 from .dist_query import DistStore, mesh_rank
 from .ingest import BatchWriter, IngestMetrics, check_shard_guidance
+from .spmd import Record, _own_rows
 from .store import DEFAULT_AGG_BUCKET_SECONDS
 from ..kernels.aggregate_combine import combine_compact
 from ..kernels.common import pow2
@@ -350,9 +358,10 @@ class TabletGroup:
     groups."""
 
     def __init__(self, gid: int, n_groups: int, programs: _PlanePrograms, m_seal, m_blocked,
-                 m_folds, m_last_seal_rows, m_group_stall, m_group_stall_events):
+                 m_folds, m_last_seal_rows, m_group_stall, m_group_stall_events, control=None):
         self.gid = int(gid)
         self.programs = programs
+        self.control = control
         self.n_tablets = programs.n_tablets  # this rank's tablets of the group
         self.n_group_tablets = programs.n_ranks * self.n_tablets
         self.g0 = self.gid * self.n_group_tablets  # global id of the group's first tablet
@@ -410,6 +419,12 @@ class TabletGroup:
             self._sealed_cache = None
             self._dirty = True
 
+    def _log(self, kind: str, *body) -> None:  # holds: lock
+        """On rank 0 of a control log, log this group's operation, under the
+        lock that ordered it here."""
+        if self.control is not None and self.control.leads:
+            self.control.put(Record(kind, body))
+
     # --------------------------------------------------------- compaction
     def _run_minor(self) -> None:  # holds: lock
         pr = self.programs
@@ -461,41 +476,57 @@ class TabletGroup:
         rank's tablets reach the device, and the mirrors take them all.
         Returns seconds this writer spent blocked on majors it tripped
         here; they also go to the plane's per-writer counter and, keyed by
-        group, to its stall counters."""
+        group, to its stall counters. On rank 0 of a control log the batch
+        is logged under the lock once it applied here."""
         n = len(rts)
         if n == 0:
             return 0.0
+        tab = np.asarray(tab).astype(np.int64)
+        ar = self.programs.append_rows
+        # The per-chunk tablet counts the mirrors and flushes follow, here
+        # and, through the log, on every follower.
+        chunk = np.arange(n, dtype=np.int64) // ar
+        counts = np.bincount(chunk * self.n_group_tablets + tab,
+                             minlength=-(-n // ar) * self.n_group_tablets
+                             ).reshape(-1, self.n_group_tablets)
+        own = _own_rows(rts, cols, tab, self.lo, self.n_tablets, ar,
+                        whole=self.n_tablets == self.n_group_tablets)
         with self.lock.hold("ingest_append"):
-            with span("ingest.append", cat="ingest", rows=n, writer=writer_id,
-                      group=self.gid) as sp:
-                blocked = self._ingest_locked(rts, cols, tab, n)
-                sp.set(blocked_s=blocked)
-            self._m_blocked.inc(blocked, writer=writer_id)
-            if blocked > 0.0:
-                self._m_group_stall.inc(blocked, group=self.gid)
-                self._m_group_stall_events.inc(group=self.gid)
+            blocked = self._append_booked(counts, *own, writer_id)
+            self._log("append", self.gid, rts, cols, tab, counts, writer_id, self.n_tablets, ar)
             return blocked
 
-    def _ingest_locked(self, rts, cols, tab, n: int) -> float:  # holds: lock
+    def apply_append(self, counts: np.ndarray, packed: np.ndarray, tab: np.ndarray,
+                     starts: np.ndarray, writer_id: int = 0) -> float:
+        """A follower's side of rank 0's ingest(): the batch's per-chunk
+        tablet counts (for the mirrors of every tablet) and the rows of
+        this rank's tablets (ids local to them), packed, with each chunk's
+        start among them."""
+        with self.lock.hold("ingest_append"):
+            return self._append_booked(counts, packed, tab, starts, writer_id)
+
+    def _append_booked(self, counts, packed, tab, starts, writer_id) -> float:  # holds: lock
+        with span("ingest.append", cat="ingest", rows=int(counts.sum()), writer=writer_id,
+                  group=self.gid) as sp:
+            blocked = self._append_rows(counts, packed, tab, starts)
+            sp.set(blocked_s=blocked)
+        self._m_blocked.inc(blocked, writer=writer_id)
+        if blocked > 0.0:
+            self._m_group_stall.inc(blocked, group=self.gid)
+            self._m_group_stall_events.inc(group=self.gid)
+        return blocked
+
+    def _append_rows(self, counts, packed, tab, starts) -> float:  # holds: lock
+        """Append chunk by chunk: counts (n_chunks, n_group_tablets) the
+        batch's rows per chunk and tablet; packed (m, 1 + F) int32 the rows
+        of this rank's tablets (rev_ts, then the codes), tab their tablet
+        ids among this rank's, chunk i at [starts[i], starts[i + 1])."""
         pr = self.programs
         t, lo, m = self.n_tablets, self.lo, pr.mem_rows
         n_idx = len(pr.indexed_fids)
-        # One host-to-device copy of this rank's rows: rev_ts beside the
-        # codes. Chunk [off, off + b) of the batch is rows_dev[at[off]:
-        # at[off + b]].
-        tab = tab.astype(np.int64)
-        mine = (tab >= lo) & (tab < lo + t)
-        at = np.concatenate([[0], np.cumsum(mine)])
-        sel = slice(None) if t == self.n_group_tablets else mine
-        packed = np.empty((int(at[-1]), 1 + pr.n_fields), np.int32)
-        packed[:, 0] = rts[sel]
-        packed[:, 1:] = cols[sel]
-        rows_dev = torch.from_numpy(packed).to(pr.device)
+        rows_dev = torch.from_numpy(packed).to(pr.device)  # one host-to-device copy
         blocked = 0.0
-        for off in range(0, n, pr.append_rows):
-            end = min(off + pr.append_rows, n)
-            tab_g = tab[off: end]
-            cb_g = np.bincount(tab_g, minlength=self.n_group_tablets)
+        for i, cb_g in enumerate(counts):
             # Exact room check from the host fill mirror: flush only when
             # some tablet's memtable would overflow.
             if np.any(self._fill + cb_g > m):
@@ -518,15 +549,15 @@ class TabletGroup:
             # Destinations from the exact host fill mirror: a tablet's rows
             # land after its fill, in chunk order; entry i of a row's
             # indexed fields lands i * (tablet's chunk rows) further on.
-            tab_c = tab_g[mine[off: end]] - lo
-            if len(tab_c):
+            a, b = int(starts[i]), int(starts[i + 1])
+            if b > a:
+                tab_c = tab[a:b]
                 cb = cb_g[lo: lo + t]
                 j = _rank_within(tab_c, cb)
                 fill = self._fill[lo: lo + t][tab_c]
                 plan = np.stack([tab_c, tab_c * m + fill + j,
                                  tab_c * (n_idx * m) + n_idx * fill + j, cb[tab_c]])
-                pr.append(self.state, rows_dev[at[off]: at[end]],
-                          torch.from_numpy(plan).to(pr.device))
+                pr.append(self.state, rows_dev[a:b], torch.from_numpy(plan).to(pr.device))
             self._fill += cb_g
             self._rows_host += cb_g
         self._dirty = True
@@ -534,7 +565,7 @@ class TabletGroup:
         return blocked
 
     # -------------------------------------------------------------- reads
-    def snapshot(self) -> DistStore:
+    def snapshot(self, pub: Optional[int] = None) -> DistStore:
         """A query-visible DistStore of every level of this group's three
         families: the base and run slabs by reference, and a sealed (sorted)
         copy of the memtables — O(live fill) device work, no fold, under
@@ -542,46 +573,52 @@ class TabletGroup:
         last snapshot; the sealed memtables are reused while the "mem"
         generation is unchanged. On a mesh every rank's mirrors move alike,
         so the ranks reuse their snapshots (and their density memos) at the
-        same publishes."""
+        same publishes. On rank 0 of a control log the seal is logged, with
+        the id ``pub`` of the publish it belongs to."""
         with self.lock.hold("publish_seal"):
-            pr = self.programs
-            if not self._dirty and self._published is not None:
-                return self._published
-            gen_mem = self._gen["mem"]
-            if self._sealed_cache is not None and self._sealed_cache[0] == gen_mem:
-                _, sealed, seal_rows = self._sealed_cache
-                self._m_seal.inc(event="reuse")
-            else:
-                seal_rows = pr.seal_bucket(int(self._fill.max()))
-                with span("ingest.seal", cat="ingest", seal_rows=seal_rows, group=self.gid):
-                    sealed = pr.seal(self.state, seal_rows)
-                self._sealed_cache = (gen_mem, sealed, seal_rows)
-                self._m_seal.inc(event="seal")
-            self._m_last_seal_rows.set(seal_rows)
-            s = self.state
-            ev_k, ev_c, ev_n = sealed["ev"]
-            levels = dict(
-                rev_ts=s["ev_base_k"], cols=s["ev_base_c"], counts=s["ev_base_n"],
-                run_rev_ts=s["ev_run_k"], run_cols=s["ev_run_c"], run_counts=s["ev_run_n"],
-                mem_rev_ts=ev_k, mem_cols=ev_c, mem_counts=ev_n,
-            )
-            if "ix" in sealed:
-                ix_k, _, ix_n = sealed["ix"]
-                ag_k, ag_c, ag_n = sealed["ag"]
-                levels.update(
-                    ix_keys=s["ix_base_k"], ix_counts=s["ix_base_n"],
-                    ix_run_k=s["ix_run_k"], ix_run_n=s["ix_run_n"],
-                    ix_mem_k=ix_k, ix_mem_n=ix_n,
-                    ag_keys=s["ag_base_k"], ag_vals=s["ag_base_c"], ag_counts=s["ag_base_n"],
-                    ag_run_k=s["ag_run_k"], ag_run_c=s["ag_run_c"], ag_run_n=s["ag_run_n"],
-                    ag_mem_k=ag_k, ag_mem_c=ag_c, ag_mem_n=ag_n,
-                    agg_bucket_s=pr.agg_bucket_s,
-                )
-            if pr.mesh is not None:
-                levels.update(mesh=pr.mesh, tablets=(self.t0, self.t0 + self.n_tablets))
-            self._published = DistStore(**levels, gens=dict(self._gen))
-            self._dirty = False
+            out = self._snapshot_locked()
+            self._log("snap", self.gid, pub)
+            return out
+
+    def _snapshot_locked(self) -> DistStore:  # holds: lock
+        pr = self.programs
+        if not self._dirty and self._published is not None:
             return self._published
+        gen_mem = self._gen["mem"]
+        if self._sealed_cache is not None and self._sealed_cache[0] == gen_mem:
+            _, sealed, seal_rows = self._sealed_cache
+            self._m_seal.inc(event="reuse")
+        else:
+            seal_rows = pr.seal_bucket(int(self._fill.max()))
+            with span("ingest.seal", cat="ingest", seal_rows=seal_rows, group=self.gid):
+                sealed = pr.seal(self.state, seal_rows)
+            self._sealed_cache = (gen_mem, sealed, seal_rows)
+            self._m_seal.inc(event="seal")
+        self._m_last_seal_rows.set(seal_rows)
+        s = self.state
+        ev_k, ev_c, ev_n = sealed["ev"]
+        levels = dict(
+            rev_ts=s["ev_base_k"], cols=s["ev_base_c"], counts=s["ev_base_n"],
+            run_rev_ts=s["ev_run_k"], run_cols=s["ev_run_c"], run_counts=s["ev_run_n"],
+            mem_rev_ts=ev_k, mem_cols=ev_c, mem_counts=ev_n,
+        )
+        if "ix" in sealed:
+            ix_k, _, ix_n = sealed["ix"]
+            ag_k, ag_c, ag_n = sealed["ag"]
+            levels.update(
+                ix_keys=s["ix_base_k"], ix_counts=s["ix_base_n"],
+                ix_run_k=s["ix_run_k"], ix_run_n=s["ix_run_n"],
+                ix_mem_k=ix_k, ix_mem_n=ix_n,
+                ag_keys=s["ag_base_k"], ag_vals=s["ag_base_c"], ag_counts=s["ag_base_n"],
+                ag_run_k=s["ag_run_k"], ag_run_c=s["ag_run_c"], ag_run_n=s["ag_run_n"],
+                ag_mem_k=ag_k, ag_mem_c=ag_c, ag_mem_n=ag_n,
+                agg_bucket_s=pr.agg_bucket_s,
+            )
+        if pr.mesh is not None:
+            levels.update(mesh=pr.mesh, tablets=(self.t0, self.t0 + self.n_tablets))
+        self._published = DistStore(**levels, gens=dict(self._gen))
+        self._dirty = False
+        return self._published
 
     # ------------------------------------------------------------- warmup
     def warm_seal(self) -> None:
@@ -596,6 +633,7 @@ class TabletGroup:
                 if seal_rows >= pr.mem_rows:
                     break
                 seal_rows = min(seal_rows * 2, pr.mem_rows)
+            self._log("warm_seal", self.gid)
 
     def warm_compaction(self) -> None:
         """Run minor, one fold increment and a major once on the current
@@ -610,6 +648,7 @@ class TabletGroup:
             if staged:
                 self._dirty = True
                 self._m_folds.inc(source="explicit")
+            self._log("warm_compaction", self.gid)
 
     # -------------------------------------------------------- bookkeeping
     def has_unfolded(self) -> bool:
@@ -650,6 +689,7 @@ class TabletGroup:
                         break
             self._m_folds.inc(passes, source=source)
             self._dirty = True
+            self._log("compact", self.gid, source, passes)
             return passes
 
     def compact_step(self, source: str = "explicit") -> int:
@@ -669,6 +709,7 @@ class TabletGroup:
                 return 0
             self._m_folds.inc(source=source)
             self._dirty = True
+            self._log("compact_step", self.gid, source)
             return 1
 
     def telemetry_arrays(self) -> Dict[str, np.ndarray]:
@@ -695,7 +736,12 @@ class DistIngestPlane:
     plane's) every rank holds tablets_per_device of them, n_tablets = R *
     tablets_per_device (give either; the default is one a rank), and
     n_groups must divide tablets_per_device. Every rank then calls
-    ingest() with the same batches and publish() at the same points.
+    ingest() with the same batches and publish() at the same points
+    (lockstep) — or, with ``control`` (a core/spmd.py Controller), rank 0
+    alone drives the plane from any number of threads and logs each
+    append, compaction, seal and publish under the lock that ordered it,
+    and the other ranks apply the log (Controller.follow) and may not
+    drive their planes themselves.
 
     The plane is a facade: it routes batches to groups by tablet id,
     composes the groups' snapshots at publish(), picks the most-indebted
@@ -710,7 +756,8 @@ class DistIngestPlane:
                  mem_rows: int = 4096, max_runs: int = 4, append_rows: int = 1024,
                  indexed_fids: Sequence[int] = (),
                  agg_bucket_s: int = DEFAULT_AGG_BUCKET_SECONDS, n_groups: int = 1,
-                 device="cuda", mesh=None, tablets_per_device: Optional[int] = None):
+                 device="cuda", mesh=None, tablets_per_device: Optional[int] = None,
+                 control=None):
         if n_groups < 1:
             raise ValueError(f"n_groups must be >= 1, got {n_groups}")
         self.device = resolve_device(device)
@@ -728,7 +775,10 @@ class DistIngestPlane:
             what = "n_tablets" if mesh is None else "tablets_per_device"
             raise ValueError(f"n_groups={n_groups} must divide {what}={tablets_per_device}: "
                              "each group owns an equal, contiguous tablet range")
+        if control is not None and mesh is None:
+            raise ValueError("a control log drives a mesh plane; a meshless plane needs none")
         self.mesh = mesh
+        self.control = control
         self.tablets_per_device = int(tablets_per_device)
         self.n_tablets = n_ranks * self.tablets_per_device
         self.n_groups = int(n_groups)
@@ -764,7 +814,7 @@ class DistIngestPlane:
         self.groups: Tuple[TabletGroup, ...] = tuple(
             TabletGroup(g, self.n_groups, self.programs, self._m_seal, self._m_blocked,
                         self._m_folds, self._m_last_seal_rows, self._m_group_stall,
-                        self._m_group_stall_events)
+                        self._m_group_stall_events, control)
             for g in range(self.n_groups)
         )
         # Session stats and the composite snapshot sit under a meta lock,
@@ -844,6 +894,13 @@ class DistIngestPlane:
         """Device bytes held by the plane's state, all groups."""
         return sum(t.numel() * t.element_size() for g in self.groups for t in g.state.values())
 
+    def _drive(self, what: str) -> None:
+        """Refuse to drive a follower's plane outside Controller.follow."""
+        ctl = self.control
+        if ctl is not None and not ctl.leads and not ctl.applying:
+            raise RuntimeError(f"{what}: rank {ctl.rank} follows rank 0's control log; "
+                               "only rank 0 drives the plane")
+
     # ----------------------------------------------------------- ingest
     def ingest(self, rts: np.ndarray, cols: np.ndarray, tab: np.ndarray,
                writer_id: int = 0) -> float:
@@ -854,6 +911,7 @@ class DistIngestPlane:
         tablets. Returns
         seconds this writer spent blocked on majors it tripped, summed over
         the groups the batch touched."""
+        self._drive("ingest")
         rts = np.asarray(rts, np.int32)
         cols = np.asarray(cols, np.int32)
         tab = np.asarray(tab, np.int64)
@@ -875,34 +933,63 @@ class DistIngestPlane:
         returns its group's snapshot; a sharded plane returns a composite
         whose ``groups`` hold the groups' snapshots in tablet order — a
         group clean since its last snapshot gives the same object again,
-        and when every group does, so does the composite (never on a mesh:
-        TabletGroup.snapshot). On a mesh the snapshot holds this rank's
-        tablets and carries the mesh."""
+        and when every group does, so does the composite. On a mesh the
+        snapshot holds this rank's tablets and carries the mesh. On rank 0
+        of a control log each group's seal and the composition are logged,
+        so every follower composes the same snapshot objects."""
+        return self._publish(False)[0]
+
+    def publish_pinned(self) -> Tuple[DistStore, int, Dict[str, int]]:
+        """publish() on rank 0 of a control log, for a query that every
+        rank runs on it: (the snapshot, its publish id, the dictionary
+        lengths at its publish record). Each follower keeps the snapshot
+        for the one query record that names the id."""
+        if self.control is None or not self.control.leads:
+            raise RuntimeError("publish_pinned needs rank 0 of a control log")
+        return self._publish(True)
+
+    def _publish(self, pin: bool):
+        self._drive("publish")
+        ctl = self.control if self.control is not None and self.control.leads else None
+        pub = ctl.next_id() if ctl is not None else None
         with span("ingest.publish", cat="ingest"):
-            if self.n_groups == 1:
-                out = self.groups[0].snapshot()
-                self._update_tablet_gauges([out.gens])
-                return out
-            subs = tuple(g.snapshot() for g in self.groups)
+            subs = tuple(g.snapshot(pub) for g in self.groups)
             self._update_tablet_gauges([sub.gens for sub in subs])
-            with self._meta_lock.hold("publish_compose"):
+            return self._compose(subs, pub, pin)
+
+    def _compose(self, subs: Tuple[DistStore, ...], pub: Optional[int] = None,
+                 pin: bool = False):
+        """The plane's snapshot of its groups' snapshots ``subs``: the one
+        group's on a single-group plane, else a composite, reused when
+        every group's snapshot is. On rank 0 of a control log the
+        composition is logged under the meta lock (whose order decides the
+        reuse); returns (snapshot, pub, the dictionary lengths logged)."""
+        with self._meta_lock.hold("publish_compose"):
+            if self.n_groups == 1:
+                out = subs[0]
+            else:
                 cached = self._composite
-                if cached is not None and all(a is b for a, b in zip(cached.groups, subs)):
-                    return cached
-                self._composite = DistStore(
-                    groups=subs, gens={f"g{g.gid}": dict(sub.gens)
-                                       for g, sub in zip(self.groups, subs)},
-                    mesh=self.mesh)
-                return self._composite
+                if cached is None or not all(a is b for a, b in zip(cached.groups, subs)):
+                    self._composite = DistStore(
+                        groups=subs, gens={f"g{g.gid}": dict(sub.gens)
+                                           for g, sub in zip(self.groups, subs)},
+                        mesh=self.mesh)
+                out = self._composite
+            lens = None
+            if pub is not None:
+                lens = self.control.put(Record("publish", (pub, pin)))
+            return out, pub, lens
 
     def warm_seal(self) -> None:
         """Run every seal bucket once on every group (TabletGroup.warm_seal)."""
+        self._drive("warm_seal")
         for g in self.groups:
             g.warm_seal()
 
     def warm_compaction(self) -> None:
         """Run every compaction step once on every group
         (TabletGroup.warm_compaction)."""
+        self._drive("warm_compaction")
         for g in self.groups:
             g.warm_compaction()
 
@@ -917,6 +1004,7 @@ class DistIngestPlane:
     def compact(self, source: str = "explicit") -> int:
         """Fold memtables and runs into the base in every group. Returns the
         passes run, summed over groups."""
+        self._drive("compact")
         return sum(g.compact(source) for g in self.groups)
 
     def compact_step(self, source: str = "explicit") -> int:
@@ -924,7 +1012,9 @@ class DistIngestPlane:
         ranked by (fold debt, staged rows), ties to the lower group id,
         under that group's lock only. A group that drained since the
         ranking returns 0 and the next one is tried. Returns 1 when an
-        increment ran, else 0."""
+        increment ran, else 0. On a control log the choice is rank 0's,
+        and the followers apply the increment on the same group."""
+        self._drive("compact_step")
         ranked = sorted(self.groups, key=lambda g: (g.fold_debt(), g.has_unfolded()),
                         reverse=True)
         for g in ranked:
@@ -989,14 +1079,20 @@ class DistBatchWriter(BatchWriter):
     through the store's dictionaries, shards by row hash and appends
     through the plane. writer_id salts the row hash and keys the plane's
     per-writer blocked seconds; omitted, each writer gets a fresh id. On a
-    mesh plane every rank runs the writer on the same events (and so
-    encodes them into the same dictionary codes); each keeps its own
-    tablets' rows."""
+    lockstep mesh plane every rank runs the writer on the same events (and
+    so encodes them into the same dictionary codes); each keeps its own
+    tablets' rows. On a plane with a control log, writers run on rank 0
+    alone, from any number of threads: the log carries each batch's rows
+    and its new dictionary entries to the other ranks."""
 
     _next_id = itertools.count()
 
     def __init__(self, store, plane: DistIngestPlane, batch_rows: int = 4096,
                  metrics: Optional[IngestMetrics] = None, writer_id: Optional[int] = None):
+        ctl = getattr(plane, "control", None)
+        if ctl is not None and not ctl.leads:
+            raise RuntimeError(f"rank {ctl.rank} follows rank 0's control log: writers run on "
+                               "rank 0")
         super().__init__(store, batch_rows=batch_rows, metrics=metrics)
         self.plane = plane
         if writer_id is None:

@@ -73,6 +73,7 @@ from .filter import compile_tree
 from .iterators import AggregateResult, AggregateSpec, ResolvedGrouping, resolve_grouping
 from .planner import QueryPlan, plan_query
 from .query import QueryStats
+from .spmd import Record, StoreView
 from .store import EventStore
 from ..distributed.sharding import P
 from ..kernels.combine_scan.ref import IDENTITY
@@ -697,11 +698,41 @@ class QueryRun:
     under its device lock, one step per batch. Published levels are never
     written in place, so a concurrent publish or compaction cannot change
     a pinned run's results. ``profile`` (a serve_db QueryProfile, or None)
-    accrues the planner's density reads and each step's device section."""
+    accrues the planner's density reads and each step's device section.
+
+    On rank 0 of a control log (core/spmd.py) the run is built on a pinned
+    publish and logged ("run"), and so is every step ("step") and an
+    abandoned run's close ("finish"): every follower builds and steps the
+    same run, so the steps' collectives pair. The run's decisions (which
+    session steps when) stay rank 0's. A request that cannot be built (a
+    tree too deep for the device stack, an unknown node or field) raises
+    before anything is logged; an exception once the run was logged ends
+    the log."""
 
     def __init__(self, proc: "DistQueryProcessor", tree, t_start: int, t_stop: int,
                  use_index: bool = True, batched: bool = True,
                  stats: Optional[QueryStats] = None, profile=None):
+        self._ctl = proc._control
+        self.qid: Optional[int] = None
+        if self._ctl is None:
+            self._build(proc, tree, t_start, t_stop, use_index, batched, stats, profile)
+            return
+        if batched and t_stop < t_start:  # the batcher's refusal, before the log
+            raise ValueError("t_stop < t_start")
+        compile_tree(proc.store, tree)  # a tree that cannot compile raises before the log
+        d, pub, lens = proc._pin()
+        rps = proc.store.rows_per_second()
+        self.qid = self._ctl.next_id()
+        self._ctl.put(Record("run", (self.qid, pub, proc._params(), rps, tree, t_start, t_stop,
+                                     use_index, batched, profile is not None)))
+        try:
+            self._build(proc._pinned(d, lens, rps), tree, t_start, t_stop, use_index, batched,
+                        stats, profile)
+        except BaseException as e:  # the followers built it: the log cannot go on
+            self._ctl.abort(e)
+            raise
+
+    def _build(self, proc, tree, t_start, t_stop, use_index, batched, stats, profile) -> None:
         self.proc = proc
         self.tree = tree
         self.t_start = t_start
@@ -739,6 +770,23 @@ class QueryRun:
         """Execute the next adaptive batch and return it; None once done."""
         if self.done:
             return None
+        if self._ctl is None:
+            return self._step()
+        self._ctl.put(Record("step", (self.qid,)))
+        try:
+            return self._step()
+        except BaseException as e:  # the followers joined this step's collectives
+            self._ctl.abort(e)
+            raise
+
+    def close(self) -> None:
+        """Drop a run before it is done: on rank 0 of a control log the
+        followers drop theirs."""
+        if self._ctl is not None and not self.done and self._ctl.live:
+            self._ctl.put(Record("finish", (self.qid,)))
+
+    # reprolint: hot-path — the body of step()
+    def _step(self) -> DistBatch:
         if self.batcher is None:
             lo, hi = float(self.t_start), float(self.t_stop)
         else:
@@ -776,12 +824,22 @@ class DistQueryProcessor:
     ``device`` must be the plane's or the snapshot's device (default
     "cuda"; the CPU tests pass "cpu"). ``w`` is the planner's threshold;
     ``index_postings`` and ``index_rows`` cap the index step's posting and
-    row slabs per level."""
+    row slabs per level.
+
+    On rank 0 of a plane's control log (core/spmd.py) every read that runs
+    device steps — agg_count, aggregate_range, execute_batched, scan_range
+    and scan_index_range without a pinned snapshot, and QueryRun — pins a
+    publish and is logged first, so the followers run it with rank 0;
+    a follower builds no processor of its own."""
 
     def __init__(self, store: EventStore, plane=None, top_k: int = 128, w: float = 10.0,
                  index_postings: int = 2048, index_rows: int = 4096, device="cuda",
                  dist: Optional[DistStore] = None):
         dev = resolve_device(device)
+        ctl = getattr(plane, "control", None)
+        if ctl is not None and not ctl.leads:
+            raise RuntimeError(f"rank {ctl.rank} follows rank 0's control log: it runs the "
+                               "queries rank 0 logs, and builds no processor of its own")
         if dist is None:
             if plane is None:
                 raise ValueError("need dist= or plane=")
@@ -807,6 +865,50 @@ class DistQueryProcessor:
             self.dist = self.plane.publish()
         return self.dist
 
+    # --------------------------------------------------------- control log
+    @property
+    def _control(self):
+        """The plane's control log when this is its rank 0, else None."""
+        ctl = getattr(self.plane, "control", None)
+        return ctl if ctl is not None and ctl.leads else None
+
+    def _pin(self) -> Tuple[DistStore, int, Dict[str, int]]:
+        """plane.publish_pinned(), kept as this processor's latest snapshot
+        as _sync keeps a publish: a processor that held its first snapshot
+        for good would keep every level a compaction has since replaced."""
+        d, pub, lens = self.plane.publish_pinned()
+        self.dist = d
+        return d, pub, lens
+
+    def _params(self) -> Tuple[int, float, int, int]:
+        return self.top_k, self.w, self.index_postings, self.index_rows
+
+    def _pinned(self, d: DistStore, lens: Dict[str, int], rps: float) -> "DistQueryProcessor":
+        """A processor on snapshot d that reads the dictionaries cut at
+        lens, as every follower reads them for the same record."""
+        return DistQueryProcessor(StoreView(self.store, lens, rps), dist=d, top_k=self.top_k,
+                                  w=self.w, index_postings=self.index_postings,
+                                  index_rows=self.index_rows, device=self.device)
+
+    def _lead(self, name: str, *args, tree=None, local: Optional[dict] = None, **kwargs):
+        """Run method ``name`` on a pinned publish, logged first ("call")
+        so the followers run it too; ``local`` holds rank 0's own
+        arguments (stats, profile), which the followers do without. The
+        call's filter ``tree`` is compiled first, so that a tree that
+        cannot compile raises before anything is logged."""
+        ctl = self._control
+        if tree is not None:
+            compile_tree(self.store, tree)
+        d, pub, lens = self._pin()
+        rps = self.store.rows_per_second()
+        proc = self._pinned(d, lens, rps)
+        ctl.put(Record("call", (ctl.next_id(), pub, self._params(), rps, name, args, kwargs)))
+        try:
+            return getattr(proc, name)(*args, **kwargs, **(local or {}))
+        except BaseException as e:  # the followers joined its collectives
+            ctl.abort(e)
+            raise
+
     # ------------------------------------------------ planner density source
     @property
     def schema(self):
@@ -820,6 +922,8 @@ class DistQueryProcessor:
     def agg_count(self, field: str, value: str, t_start: int, t_stop: int) -> int:
         """Occurrences of field=value in the bucketed time range, from the
         device's aggregate tablets at every level — the planner's d_i."""
+        if self._control is not None:
+            return self._lead("agg_count", field, value, t_start, t_stop)
         return self._agg_count_on(self._sync(), field, value, t_start, t_stop)
 
     # reprolint: hot-path — planning reads densities per condition per query
@@ -872,6 +976,8 @@ class DistQueryProcessor:
         ``program`` is the tree's prepared Program (made here if None);
         ``profile`` (a serve_db QueryProfile) accrues the device section in
         device_acc_s."""
+        if dist is None and self._control is not None:
+            return self._lead("scan_range", tree, t0, t1, tree=tree, local={"profile": profile})
         d = dist if dist is not None else self._sync()
         if program is None:
             program = self._program(tree, d.device)
@@ -922,6 +1028,9 @@ class DistQueryProcessor:
         truncated, candidates); truncated > 0 means a slab overflowed and
         the count is a lower bound. ``program`` and ``profile`` as in
         scan_range."""
+        if dist is None and self._control is not None:
+            return self._lead("scan_index_range", plan, tree, t0, t1, tree=tree,
+                              local={"profile": profile})
         d = dist if dist is not None else self._sync()
         if program is None:
             program = self._program(tree, d.device)
@@ -976,10 +1085,13 @@ class DistQueryProcessor:
         filter plans the scan step, and empty plans nothing."""
         run = QueryRun(self, tree, t_start, t_stop, use_index=use_index, batched=batched,
                        stats=stats)
-        while not run.done:
-            blk = run.step()
-            if blk is not None:
-                yield blk
+        try:
+            while not run.done:
+                blk = run.step()
+                if blk is not None:
+                    yield blk
+        finally:
+            run.close()
 
     def run_scheme(self, scheme: str, t_start: int, t_stop: int, tree=None,
                    stats: Optional[QueryStats] = None) -> Iterator[DistBatch]:
@@ -1014,6 +1126,10 @@ class DistQueryProcessor:
         provably empty plans skip the device, and everything else runs the
         aggregate step. Returns the merged per-group result for ts in
         [t0, t1]. ``dist`` pins a snapshot; by default the plane's latest."""
+        if dist is None and self._control is not None:
+            resolve_grouping(self.store, spec, t0, t1)  # a bad spec raises before the log
+            return self._lead("aggregate_range", spec, tree, t0, t1, use_index=use_index,
+                              tree=tree, local={"stats": stats})
         d = dist if dist is not None else self._sync()
         grouping = resolve_grouping(self.store, spec, t0, t1)
         source = _PinnedSource(self, d) if d.has_index else self.store
@@ -1069,6 +1185,9 @@ class DistQueryProcessor:
                         stats: Optional[QueryStats] = None):
         """Algorithm 2 over the device scan, pinned to one snapshot: a list
         of (count, ts, cols) per adaptive batch."""
+        if self._control is not None:
+            return self._lead("execute_batched", tree, t_start, t_stop, tree=tree,
+                              local={"stats": stats})
         d = self._sync()
         program = self._program(tree, d.device)
         rps = self.store.rows_per_second()

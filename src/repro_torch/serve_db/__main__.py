@@ -2,6 +2,7 @@
 card; the port of the reference's `python -m repro.serve_db`.
 
     python -m repro_torch.serve_db [--device cuda|cpu] [--duration S] ...
+    torchrun --nproc-per-node N -m repro_torch.serve_db --mesh dev ...
 
 It runs the serve plane as a *deployment*: background writers feeding a
 sharded DistIngestPlane (``--groups`` tablet groups of
@@ -12,6 +13,15 @@ SLO watchdog holding the paper's latency objective — on breach it drops
 an incident bundle (flight-recorder trace + metrics snapshot) into the
 incident directory. ``--device`` defaults to cuda and raises when CUDA
 is missing; ``--device cpu`` runs the kernels' plain versions.
+
+``--mesh dev`` serves on a (1, R) DeviceMesh of every rank, as the
+reference's daemon serves on its mesh plane: under torchrun each rank
+builds the same seeded store and a mesh plane of ``--tablets-per-device``
+tablets in ``--groups`` groups; rank 0 is the controller (writers,
+sessions, dispatcher, compactor, /metrics, watchdog) and the other ranks
+follow its control log (core/spmd.py) until it stops. Without torchrun it
+joins a one-rank process group (an existing one is used as is, otherwise
+one is made and destroyed). Without ``--mesh`` the plane is meshless.
 
 Two early stdout lines are machine-readable (flushed before any long
 work):
@@ -64,7 +74,10 @@ def _parse(argv) -> argparse.Namespace:
     ap.add_argument("--incident-dir", default="incidents", help="bundle directory")
     ap.add_argument("--groups", type=int, default=2, help="plane tablet groups")
     ap.add_argument("--tablets-per-device", type=int, default=4,
-                    help="the plane's tablets on the one card")
+                    help="the plane's tablets on each card")
+    ap.add_argument("--mesh", choices=["dev"], default=None,
+                    help="serve on a DeviceMesh of every rank (rank 0 serves, the "
+                    "others follow its control log)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
     ap.add_argument("--seed", type=int, default=7)
@@ -91,11 +104,57 @@ def _parse(argv) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _join_group(dev):
+    """The process group of a mesh daemon: torchrun's (WORLD_SIZE set), one
+    already joined, or a new one of one rank. Returns (the rank's device,
+    whether this call made the group)."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dev, False
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend)
+        return dev, True
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    return dev, True
+
+
 def main(argv=None) -> int:
     args = _parse(argv)
+    if not args.mesh:
+        return _serve(args, args.device, None)
+    import torch.distributed as dist
+
+    from ..core.device import resolve_device
+    from ..launch.mesh import make_dev_mesh
+
+    dev, made = _join_group(resolve_device(args.device))
+    try:
+        return _serve(args, dev, make_dev_mesh(1, dist.get_world_size(), device_type=dev.type))
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, mesh) -> int:
     # Imports after argparse so `--help` stays instant.
     from ..core import EventStore, web_proxy_schema
     from ..core.dist_ingest import DistBatchWriter, DistIngestPlane
+    from ..core.spmd import Controller
     from ..obs import (
         WatchRule, Watchdog, counter_delta_rule, flight_enable, gauge_rule,
         get_registry, lock_wait_rule, serve_prometheus,
@@ -104,20 +163,27 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     ts, vals = _gen(rng, args.rows)
-    store = EventStore(web_proxy_schema(), n_shards=4, device=args.device)
+    store = EventStore(web_proxy_schema(), n_shards=4, device=device)
     store.ingest(ts, vals)
     store.flush_all()
     store.compact_all()
     # Capacity sized for seed + everything the writers can append during
     # the run (each writer is budgeted to at most re-send the seed).
     cap = 2 * args.rows * (1 + max(args.writers, 1))
-    plane = DistIngestPlane.for_store(
-        store, capacity=cap,
-        n_tablets=args.tablets_per_device,
-        n_groups=args.groups,
-        mem_rows=512, max_runs=4, append_rows=256,
-        device=args.device,
-    )
+    sizes = dict(n_groups=args.groups, mem_rows=512, max_runs=4, append_rows=256, device=device)
+    control = None
+    if mesh is None:
+        plane = DistIngestPlane.for_store(store, capacity=cap,
+                                          n_tablets=args.tablets_per_device, **sizes)
+    else:
+        control = Controller(store)
+        plane = DistIngestPlane.for_store(store, capacity=cap, mesh=mesh, control=control,
+                                          tablets_per_device=args.tablets_per_device, **sizes)
+        if not control.leads:
+            n = control.follow(plane)
+            print(f"daemon: rank {control.rank} followed {n} records of rank 0's log",
+                  flush=True)
+            return 0
     flight_enable()
     endpoint = serve_prometheus(port=args.port)
     print(f"METRICS_URL={endpoint.url}", flush=True)
@@ -206,6 +272,8 @@ def main(argv=None) -> int:
         t.join(timeout=90.0)
     watchdog.stop()
     svc.close()
+    if control is not None:
+        control.close()  # the stop record, once the service and the writers are done
     endpoint.stop()
     incidents = [i for i in watchdog.incidents() if i.get("kind") == "incident"]
     print(

@@ -51,6 +51,11 @@ increment in the most-indebted group under THAT group's lock only — so a
 background fold in group 2 never stalls writers appending to groups 0, 1
 or 3, and the one-increment stall bound the starvation guard asserts is
 now also a one-GROUP stall.
+
+MESH PLANES with a control log (core/spmd.py): the compactor runs on rank
+0 only, and its idle and debt decisions (`has_unfolded`, `fold_debt`)
+stay there; the group that takes each increment logs it under its lock,
+and every follower applies the same increment on its own tablets.
 """
 from __future__ import annotations
 

@@ -45,6 +45,18 @@ Every thread enqueues its work on the card's one stream, so a session's
 device wait can include writer or compactor work queued ahead of it;
 span fences wait on an event recorded after the span's own work, never
 on work queued later.
+
+ON A MESH (a plane built with ``mesh=`` and ``control=``, core/spmd.py),
+rank 0 is the reference's single controller: it runs this service — its
+sessions, scheduler, dispatcher and compactor — and the writers, and the
+plane and the processor log every operation that changes or reads the
+device state (a run's build and each of its steps, on the dispatcher;
+appends, folds and seals under their group locks). The other ranks follow
+that log and never decide anything themselves; the dispatcher stays the
+one thread of rank 0 that issues collectives. Host-backend sessions touch
+no mesh state and run on rank 0 alone. The service does not own the log:
+close() logs the end of every run it drops, and whoever built the
+Controller closes it once the service and the writers have stopped.
 """
 from __future__ import annotations
 
@@ -111,11 +123,15 @@ class QueryService:
         compactor: bool = True,
         start: bool = True,
     ):
-        if getattr(plane, "mesh", None) is not None:
+        control = getattr(plane, "control", None)
+        if control is not None and not control.leads:
+            raise RuntimeError(f"rank {control.rank} follows rank 0's control log: the "
+                               "service runs on rank 0 alone (Controller.follow here)")
+        if getattr(plane, "mesh", None) is not None and control is None:
             # Its threads would schedule each rank's queries, publishes and
             # compactions apart, and the ranks' collectives would not pair.
-            raise ValueError("QueryService serves a meshless plane; a mesh plane's "
-                             "queries run on every rank in step (DistQueryProcessor)")
+            raise ValueError("QueryService serves a meshless plane, or a mesh plane with a "
+                             "control log (core/spmd.py Controller) that rank 0 leads")
         self.store = store
         self.plane = plane
         self.proc = DistQueryProcessor(store, plane=plane, top_k=top_k, w=w,
@@ -160,7 +176,9 @@ class QueryService:
 
     def close(self) -> None:
         """Drain nothing, stop everything: pending queries error out on
-        their streams; sessions' final telemetry lands in the plane."""
+        their streams; sessions' final telemetry lands in the plane. On a
+        mesh plane each dropped run's end is logged; the control log stays
+        open for its owner to close."""
         self._stop.set()
         if self._dispatcher is not None:
             self._dispatcher.join()
@@ -171,6 +189,8 @@ class QueryService:
         # _enqueue's liveness check, and hands back everything queued —
         # no stream is ever left hanging without a terminal item.
         for entry in self.scheduler.close():
+            if entry.run is not None and hasattr(entry.run, "close"):
+                entry.run.close()
             entry.stream._finish(error=RuntimeError("QueryService closed"))
         for s in list(self._sessions.values()):
             s.close()

@@ -10,9 +10,10 @@ fails the test instead of hanging it):
   of 8 tablets in 2 groups; every rank saves its published tablets and
   the raw outputs of the five steps, run_scheme's batches and
   aggregate_range's results for the test to hold against the reference's
-  (2, 2) shard_map store; then the same checks as below for R = 4, and
-  the refusals (a mesh of another device type, a load_state, a
-  QueryService);
+  (2, 2) shard_map store; then the same checks as below for R = 4, the
+  refusals (a mesh of another device type, a load_state), and a
+  QueryService on a mesh plane with a control log (rank 0 serves, the
+  other ranks follow) answering one query as on the meshless plane;
 * world 2, a (1, 2) mesh (ranks 0 and 1): R = 2;
 * world 1, a (1, 1) mesh (rank 0): R = 1.
 
@@ -90,11 +91,11 @@ def ingest_sequence(plane, rts, cols, tab, plan):
         plane.ingest(rts[off: off + chunk], cols[off: off + chunk], tab[off: off + chunk])
 
 
-def make_plane(store, plan, mesh=None):
+def make_plane(store, plan, mesh=None, control=None):
     from repro_torch.core.dist_ingest import DistIngestPlane
 
     return DistIngestPlane.for_store(store, n_tablets=plan["tablets"], n_groups=plan["groups"],
-                                     device="cpu", mesh=mesh, **plan["sizes"])
+                                     device="cpu", mesh=mesh, control=control, **plan["sizes"])
 
 
 STATE_FIELDS = ("rev_ts", "cols", "counts", "run_rev_ts", "run_cols", "run_counts",
@@ -301,7 +302,6 @@ def refusals(mesh):
     from repro_torch.core.dist_ingest import DistIngestPlane
     from repro_torch.core.schema import web_proxy_schema
     from repro_torch.core.store import EventStore
-    from repro_torch.serve_db import QueryService
 
     out = {}
     # The mesh as one of another device type than the plane's would be.
@@ -316,8 +316,6 @@ def refusals(mesh):
                                           device="cpu", mesh=mesh),
         "load_state": lambda: (lambda p: p.load_state(p.state))(
             DistIngestPlane(12, 64, n_tablets=8, device="cpu", mesh=mesh)),
-        "serve": lambda: QueryService(store, DistIngestPlane.for_store(
-            store, 64, n_tablets=8, device="cpu", mesh=mesh), start=False),
     }
     for name, fn in cases.items():
         try:
@@ -325,6 +323,43 @@ def refusals(mesh):
             out[name] = None
         except (ValueError, RuntimeError) as e:
             out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def serve_on_mesh(mesh, inputs, plan):
+    """A QueryService on a mesh plane with a control log: rank 0 ingests
+    the plan's events and serves one index query of the plan's AND (one
+    batch: its range depends on no runtime) through one session, then
+    closes the service and the log (its stop record); the other ranks
+    follow. Rank 0 also serves it on a meshless plane, and returns both
+    services' batches as
+    ((lo, hi, count) per batch, sorted ts per batch); a follower returns
+    the records it applied."""
+    from repro_torch.core import filter as pf
+    from repro_torch.core.schema import web_proxy_schema
+    from repro_torch.core.spmd import Controller
+    from repro_torch.core.store import EventStore
+    from repro_torch.serve_db import QueryService
+
+    tree = build_tree(pf, plan["queries"][1])
+    out = {}
+    for name in ("mesh", "meshless"):
+        store = EventStore(web_proxy_schema(), device="cpu")
+        _, _, rts, cols, tab = encoded(store, inputs)
+        ctl = Controller(store) if name == "mesh" else None
+        if ctl is not None and not ctl.leads:
+            out["applied"] = ctl.follow(make_plane(store, plan, mesh, ctl))
+            return out
+        plane = make_plane(store, plan, None if ctl is None else mesh, ctl)
+        ingest_sequence(plane, rts, cols, tab, plan)
+        with QueryService(store, plane, top_k=plan["top_k"]) as svc:
+            s = svc.session("one")
+            rbs = s.submit("index", 0, plan["t_span"], tree).drain(timeout=120)
+            s.close()
+        if ctl is not None:
+            ctl.close()  # the followers' stop record
+        out[name] = [[[rb.lo, rb.hi, rb.count] for rb in rbs],
+                     [sorted(map(int, rb.ts)) for rb in rbs]]
     return out
 
 
@@ -352,6 +387,7 @@ def main(rank: int, out_dir: str) -> None:
         np.savez(os.path.join(out_dir, f"port_rank{rank}.npz"), **got, **local_state(d))
         res["tablets"] = [sub.tablets for sub in subs_of(d)]
         res["refusals"] = refusals(mesh)
+        res["serve"] = serve_on_mesh(mesh, inputs, plan)
 
     _phase(rank, 4, os.path.join(out_dir, "fs4"), (2, 2), four)
     for world, shape in ((2, (1, 2)), (1, (1, 1))):

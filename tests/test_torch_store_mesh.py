@@ -27,7 +27,9 @@ no tolerance and with dtypes:
 
 Every rank must return the same global results. The workers also check
 the port alone: meshless equals mesh for R = 4, 2 and 1, the ranks'
-dictionary codes, and the refusals. Last, a fake-world run_store_cell in
+dictionary codes, the refusals, and a QueryService on the mesh plane
+with a control log (rank 0 serving, ranks 1-3 following) answering as
+on the meshless plane. Last, a fake-world run_store_cell in
 a subprocess: its argument bytes per device equal the slabs'.
 """
 from __future__ import annotations
@@ -334,12 +336,21 @@ def test_meshless_equals_mesh(mesh_run, ranks):
 
 @pytest.mark.parametrize("case, words", [
     ("wrong_device", "device type"), ("indivisible", "does not divide"),
-    ("groups", "must divide tablets_per_device"), ("load_state", "meshless"),
-    ("serve", "meshless plane")])
+    ("groups", "must divide tablets_per_device"), ("load_state", "meshless")])
 def test_mesh_store_refusals(mesh_run, case, words):
     _, infos, _, _ = mesh_run
     for info in infos:
         assert info["refusals"][case] is not None and words in info["refusals"][case]
+
+
+def test_mesh_query_service_serves(mesh_run):
+    """A QueryService serves a mesh plane built with a control log: rank 0
+    answers one query as the meshless plane's service does, batch for
+    batch, and closes; ranks 1-3 follow its log to the stop record."""
+    _, infos, _, _ = mesh_run
+    got = infos[0]["serve"]
+    assert got["mesh"] == got["meshless"] and sum(b[2] for b in got["mesh"][0]) > 0
+    assert all(infos[r]["serve"]["applied"] > 0 for r in range(1, 4))
 
 
 STORE_CELL = textwrap.dedent(
