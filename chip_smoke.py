@@ -341,13 +341,15 @@ no result line):
              alone, the index step's candidate rows alone and fused, and
              on the base In(bytes_in) sets of 3,000, 12,000 and 30,000
              codes staged in shared memory and with their codes in global
-             memory, and of 300,000 codes; merge_intersect: the posting
+             memory (answered from its bitmap where it has one), and of
+             300,000 codes (a bitmap); merge_intersect: the posting
              slabs of one AND-B batch (sorted probes), and an int64 case
-             with unsorted probes; combine_scan:
-             all four ops on the largest tier-A batch of path 3, its sum
-             with the 300,000-code program, and on 1,048,576 synthetic
-             rows with one group over many tiles and a filter that
-             rejects half its rows; aggregate_combine: combine_compact on
+             with unsorted probes; combine_scan, in its group form
+             (combine_groups, the host op's) and its per-row form
+             (combine_segments): all four ops on the largest tier-A
+             batch of path 3, its sum with the 300,000-code program, and
+             on 1,048,576 synthetic rows with one group over many strips
+             and a filter that rejects half its rows; aggregate_combine: combine_compact on
              the index and aggregate families' 2-way major and fold
              inputs, each also against the earlier path (the
              combine_blocks kernel and PyTorch passes, composed here),
@@ -839,8 +841,9 @@ def time_filter(name, levels, program, rich=None, both_placements=False):
     launch) against the plain version per level, with the rich program
     too where given. both_placements also times the program staged whole
     in shared memory (SHARED_PROGRAM_BYTES at the opt-in limit) and with
-    its codes in global memory (SHARED_PROGRAM_BYTES = 0), beside its
-    default placement."""
+    its codes in global memory (SHARED_PROGRAM_BYTES = 0; a set answered
+    from its bitmap where the program has one), beside its default
+    placement."""
     from repro_torch.kernels import program_eval
     from repro_torch.kernels.build import shared_optin_bytes
     from repro_torch.kernels.filter_scan import filter_scan_levels
@@ -864,6 +867,8 @@ def time_filter(name, levels, program, rich=None, both_placements=False):
         "shape": name, "dims": [list(c.shape) for c in levels], "dtype": "int32",
         "codes": program.n_codes, "program_bytes": program.nbytes,
         "placement": ("shared" if staged == program.header_words + program.n_codes else
+                      "header in shared, bitmap in global" if staged == program.header_words
+                      and program.n_bitmap_words else
                       "header in shared, codes in global" if staged == program.header_words
                       else "global"), "max_abs_err": err,
         "ms": cuda_ms(lambda: filter_scan_levels(levels, program)),
@@ -929,8 +934,12 @@ def time_intersect(name, a, b):
     }
 
 
+COMBINE_NAMES = ("combine_chunks_kernel", "Memset")  # the memset clears the look-back words
+
+
 def time_combine(name, keys, vals, cols, program, op):
-    """combine_scan against its plain version on one sorted batch."""
+    """combine_scan's per-row form (combine_segments) against its plain
+    version on one sorted batch."""
     from repro_torch.kernels.combine_scan import combine_scan_ref, combine_segments
 
     v = None if op == "count" else vals
@@ -943,14 +952,48 @@ def time_combine(name, keys, vals, cols, program, op):
     # per row.
     read = n * (8 + (0 if op == "count" else 4) + 4 * f) + program.nbytes
     return {
-        "shape": f"{name} {op}", "dims": [n, f], "dtype": "int64 keys, int32 values and codes",
-        "codes": program.n_codes, "groups": int(got[0].sum()), "max_abs_err": err,
+        "shape": f"{name} {op}", "entry": "combine_segments", "dims": [n, f],
+        "dtype": "int64 keys, int32 values and codes",
+        "codes": program.n_codes, "bitmap_words": program.n_bitmap_words,
+        "groups": int(got[0].sum()), "max_abs_err": err,
         "ms": cuda_ms(lambda: combine_segments(keys, v, cols, program, op)),
         "device_ms": device_ms(lambda: combine_segments(keys, v, cols, program, op),
-                               ("combine_scan_kernel", "combine_scan_stitch")),
+                               COMBINE_NAMES, per_call=2),
         "device_ms_by": DEVICE_MS_BY[-1],
         "plain_ms": cuda_ms(lambda: combine_scan_ref(keys, vals, cols, *program, op)),
         "bound_ms": (read + n * 13) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def time_groups(name, keys, vals, cols, program, op):
+    """combine_scan's group form (combine_groups, the host op's) against
+    its plain version on one sorted batch."""
+    from repro_torch.kernels.combine_scan import combine_groups, combine_groups_ref
+
+    v = None if op == "count" else vals
+    *got, n_got = combine_groups(keys, v, cols, program, op)
+    *want, n_want = combine_groups_ref(keys, vals, cols, *program, op)
+    m = int(n_got)
+    check(m == int(n_want), f"{name} {op}: {m} groups, the plain version {int(n_want)}")
+    err = max([0] + [int((g[:m].long() - w.long()).abs().max()) for g, w in zip(got, want)
+                     if m])
+    check(all(g.dtype == w.dtype for g, w in zip(got, want)), f"{name} {op}: dtypes differ")
+    n, f = cols.shape
+    # As time_combine's rows, but written: each group with a matching row
+    # (int64 key and aggregate, int32 count) and the group count.
+    read = n * (8 + (0 if op == "count" else 4) + 4 * f) + program.nbytes
+    return {
+        "shape": f"{name} {op} groups", "entry": "combine_groups", "dims": [n, f],
+        "dtype": "int64 keys, int32 values and codes",
+        "codes": program.n_codes, "bitmap_words": program.n_bitmap_words, "groups": m,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: combine_groups(keys, v, cols, program, op)),
+        "device_ms": device_ms(lambda: combine_groups(keys, v, cols, program, op),
+                               COMBINE_NAMES, per_call=2),
+        "device_ms_by": DEVICE_MS_BY[-1],
+        "plain_ms": cuda_ms(lambda: combine_groups_ref(keys, vals, cols, *program, op)),
+        "bound_ms": (read + m * 20 + 8) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
     }
 
@@ -4318,9 +4361,11 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
     order = np.argsort(gids, kind="stable")
     batch = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
              for x in (gids[order], grouping.values(cols)[order], cols[order])]
-    combine_rows = [time_combine("tier-A batch", *batch, program, op) for op in OPS]
-    combine_rows.append(time_combine(f"tier-A batch In(bytes_in, {n_in:,} codes)", *batch,
-                                     in_300k, "sum"))
+    combine_rows = []
+    for timer in (time_combine, time_groups):
+        combine_rows += [timer("tier-A batch", *batch, program, op) for op in OPS]
+        combine_rows.append(timer(f"tier-A batch In(bytes_in, {n_in:,} codes)", *batch,
+                                  in_300k, "sum"))
     n_syn = 1 << 20
     syn_gids = np.sort(rng.integers(0, 4000, n_syn))
     syn_gids[n_syn // 2:] = 4000  # one group over the last 1024 tiles of 512 rows
@@ -4331,7 +4376,8 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
     syn = [torch.from_numpy(x).to(dev) for x in
            (syn_gids.astype(np.int64), rng.integers(0, 1 << 20, n_syn).astype(np.int32), syn_cols)]
     syn_prog = program_tensors(store, Eq("status", "200"), dev)
-    combine_rows += [time_combine("synthetic straddle", *syn, syn_prog, op) for op in OPS]
+    combine_rows += [timer("synthetic straddle", *syn, syn_prog, op)
+                     for timer in (time_combine, time_groups) for op in OPS]
     for row in combine_rows:
         log("kernel", json.dumps({"name": "combine_scan", **row}))
     report["tier_a_batch"] = {"lo": lo_t, "hi": hi_t, "rows": int(len(keys))}
@@ -4377,7 +4423,7 @@ def run_main_path(seed, dev, size=MAIN_PATH, pipeline=None, smi="not read"):
         summary("merge_intersect", "cuda", INTERSECT_SRC, INTERSECT_REPLACES, intersect_rows,
                 "AND-B batch (T,S) int32"),
         summary("combine_scan", "cuda", COMBINE_SRC, COMBINE_REPLACES, combine_rows,
-                "tier-A batch sum"),
+                "tier-A batch sum groups"),
         summary("aggregate_combine", "cuda", AGGREGATE_SRC, AGGREGATE_REPLACES, aggregate_rows,
                 "ag two_way"),
     ]

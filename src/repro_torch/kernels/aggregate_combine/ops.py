@@ -10,10 +10,12 @@ aggregate family) or without (the index family's dedup). The kernel reads
 only each row's live prefix of keys and writes every output slot once.
 
 ``combine_blocks(keys, counts)`` marks the head of every run of equal keys
-along the last dim and puts the run's int64 count sum at its head (the
-host combiner, ``combine_sorted_counts``). The kernel sums tile by tile,
-and its second pass folds the tile-start entries that continue a key into
-the key's head.
+along the last dim and puts the run's int64 count sum at its head, for
+``combine_sorted_counts`` (the reference's host combiner op, which no path
+of either package calls: the host store's combiner is
+core/tables.py::_combine_sorted in PyTorch, as the reference's is jnp).
+The kernel sums tile by tile, and its second pass folds the tile-start
+entries that continue a key into the key's head.
 """
 from __future__ import annotations
 

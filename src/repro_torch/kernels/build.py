@@ -108,17 +108,22 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, ll, ll, ll, vp, vp]
             fn.restype = i
-        lib.combine_scan_tiles.argtypes = [vp, vp, vp, ll, i, vp, i, i, i, i,
-                                           vp, vp, vp, vp, vp]
-        lib.combine_scan_tiles.restype = i
+        inputs = [vp, vp, vp, ll, i, vp, i, i, i, i]
+        lib.combine_scan_rows.argtypes = inputs + [vp, vp, vp, vp, ll, vp]
+        lib.combine_scan_rows.restype = i
+        lib.combine_scan_groups.argtypes = inputs + [vp] * 8 + [ll, vp]
+        lib.combine_scan_groups.restype = i
+        lib.combine_scan_scratch_bytes.argtypes = [i, i, i, i, i, i]
+        lib.combine_scan_scratch_bytes.restype = ll
+        lib.combine_scan_reserved_bytes.argtypes = [i, i, i]
+        lib.combine_scan_reserved_bytes.restype = i
         for name in ("aggregate_combine_i32", "aggregate_combine_i64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp]
             fn.restype = i
         lib.combine_compact.argtypes = [vp, vp, i, vp, ll, ll, ll, ll, vp, vp, vp, vp, vp, vp]
         lib.combine_compact.restype = i
-        for name in ("combine_scan_tile_rows", "aggregate_combine_tile_rows",
-                     "combine_scan_accumulator_bytes", "shared_optin_bytes"):
+        for name in ("aggregate_combine_tile_rows", "shared_optin_bytes"):
             fn = getattr(lib, name)
             fn.argtypes = []
             fn.restype = i

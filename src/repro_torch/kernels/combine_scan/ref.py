@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the fused filter and combine kernel: the
-predicate program, then a whole-array segmented aggregate over rows
-sorted by group key."""
+"""Plain PyTorch versions of the fused filter and combine kernel's two
+forms: the predicate program, then a whole-array segmented aggregate over
+rows sorted by group key, at each group's first row (combine_scan_ref) or
+compacted to the groups with a matching row (combine_groups_ref)."""
 from __future__ import annotations
 
 import torch
@@ -40,3 +41,12 @@ def combine_scan_ref(keys, vals, cols, opcodes, arg0, arg1, codesets, op: str):
     aggs = torch.where(heads, agg.gather(0, seg), ident).to(torch.int64)
     cnts = torch.where(heads, cnt.gather(0, seg), 0)
     return heads, aggs, cnts
+
+
+def combine_groups_ref(keys, vals, cols, opcodes, arg0, arg1, codesets, op: str):
+    """The arguments of combine_scan_ref. Returns (group keys int64,
+    aggregates int64, match counts int32, n int64 of shape ()): the groups
+    with at least one matching row, in key order, n of them."""
+    heads, aggs, cnts = combine_scan_ref(keys, vals, cols, opcodes, arg0, arg1, codesets, op)
+    keep = heads & (cnts > 0)
+    return keys[keep], aggs[keep], cnts[keep], keep.sum()

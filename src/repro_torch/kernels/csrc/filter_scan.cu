@@ -9,8 +9,8 @@
 //
 // What bounds it on the H100: bytes. The rows are read once and the mask
 // written once: n*F*4 + n bytes over 3.35 TB/s. The work per row is a few
-// integer compares per program step, and ceil(log2 M) probes per PUSH_IN
-// over a set of M codes.
+// integer compares per program step, and per PUSH_IN one bitmap load or
+// about log2 M probes over a set of M codes (program_eval.cuh).
 //
 // Design: one launch takes up to kMaxLevels segments, each an (n_l, F)
 // int32 block of rows with its own bool output (a scan step's base, runs
@@ -20,8 +20,8 @@
 // so a block stages the prepared program once for its whole life (not
 // once per 256 rows) and one launch serves the whole step. F stays
 // unpadded (the reference padded fields to 128 TPU lanes). Programs too
-// large for shared memory keep their codes in global memory
-// (program_eval.cuh). The kernel allocates nothing and launches on the
+// large for shared memory keep their codes, and their sets' bitmaps, in
+// global memory (program_eval.cuh). The kernel allocates nothing and launches on the
 // caller's stream.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(kThreads)
 filter_levels_kernel(Levels lv, int f, const int32_t* __restrict__ words, int p,
                      int header_words, int staged) {
   extern __shared__ int32_t smem[];
-  program_eval::stage_words(smem, words, staged);
+  program_eval::stage_program(smem, words, p, header_words, staged);
   __syncthreads();
   const program_eval::View view = program_eval::program_view(smem, words, p, header_words,
                                                              staged);
@@ -62,7 +62,8 @@ filter_levels_kernel(Levels lv, int f, const int32_t* __restrict__ words, int p,
 
 // cols[l] (rows[l], f) int32 and out[l] (rows[l],) bool, device pointers in
 // host arrays of n_levels entries; the prepared program's words on the
-// device, of which a block stages the first `staged` in shared memory.
+// device, of which a block stages the first `staged` (and the bitmap
+// offsets) in shared memory.
 extern "C" int filter_scan_levels(const void* const* cols, void* const* out,
                                   const long long* rows, int n_levels, int f,
                                   const void* words, int p, int header_words, int staged,
@@ -83,7 +84,8 @@ extern "C" int filter_scan_levels(const void* const* cols, void* const* out,
   }
   const long long total = lv.start[n_levels];
   if (total == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)staged * sizeof(int32_t);
+  const size_t smem =
+      (size_t)program_eval::shared_words(p, header_words, staged) * sizeof(int32_t);
   cudaError_t err = program_eval::allow_shared(filter_levels_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;

@@ -1,6 +1,6 @@
 // segments.cuh — block-wide segment numbering and warp segmented
-// reductions over a tile of rows sorted by key, shared by the
-// combine_scan and aggregate_combine kernels.
+// reductions over a tile of rows sorted by key, for the aggregate_combine
+// kernels.
 //
 // A tile is one block, one row per thread. A row heads a segment when it
 // is the tile's first row or its key differs from the previous row's.

@@ -11,6 +11,8 @@ and payload by rank:
                         (the plane's K-way major stage)
   merge_pair_device     base + one run per tablet (the plane's 2-way major
                         stage and the incremental fold)
+  merge_window_keys     one window of output ranks of K sentinel-padded
+                        runs (a merge resumable by rank)
   merge_sorted_runs     host tablets' ragged numpy runs
 """
 from __future__ import annotations
@@ -122,6 +124,24 @@ def merge_pair_device(a_keys, a_cols, a_n, b_keys, b_cols, b_n):
     cols = torch.cat([a_cols, b_cols], dim=1)
     ranks = merge_ranks(keys, (0, ca, keys.shape[1]), torch.stack([a_n, b_n], dim=1))
     return _scatter_by_rank(keys, cols, ranks)
+
+
+def merge_window_keys(keys: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    """The keys at output ranks [start, start + length) of the merge of
+    keys (K, R) int32/int64, each row sorted ascending and padded with the
+    dtype-max sentinel; ranks past the last entry hold the sentinel.
+    Consecutive windows concatenate to the whole merge, so a merge can be
+    resumed by rank. The ranks come from merge_ranks (one launch on the
+    card), each row's live length its keys below the sentinel."""
+    k, r = keys.shape
+    sentinel = torch.iinfo(keys.dtype).max
+    lengths = (keys < sentinel).sum(dim=1, dtype=torch.int32)[None]
+    ranks = merge_ranks(keys.reshape(1, k * r), [o * r for o in range(k + 1)], lengths)
+    ranks = ranks.reshape(-1).to(torch.int64)
+    in_window = (ranks >= start) & (ranks < start + length)
+    out = torch.full((length + 1,), sentinel, dtype=keys.dtype, device=keys.device)
+    out.scatter_(0, torch.where(in_window, ranks - start, length), keys.reshape(-1))
+    return out[:length]
 
 
 def merge_sorted_runs(

@@ -7,13 +7,20 @@ padded with -1), the kernels' plain version. ``prepare_program`` stages
 it once per query on a device as a ``Program``: the original form, and
 for the kernels (csrc/program_eval.cuh) one flat int32 array
 
-    [opcodes P | arg0 P | arg1 P | set offsets S+1 | codes]
+    [opcodes P | arg0 P | arg1 P | set offsets S+1 | codes |
+     bitmap offsets S+1 | bitmaps]
 
 where set s is codes[off[s]:off[s+1]], its non-negative codes sorted
-ascending, so the kernels search a set in log2 of its size. A block
-stages the whole array in shared memory while it fits under
+ascending, so the kernels search a set in log2 of its size, and bitmap s
+is words[boff[s]:boff[s+1]] (absolute offsets; empty: no bitmap), bit c of
+its word c // 32 set for each code c of the set. A block stages the
+program and its codes in shared memory while they fit under
 ``SHARED_PROGRAM_BYTES``; past that it stages the header (opcodes, args
-and offsets) and searches the codes in place in global memory.
+and offsets) and reads the codes in place in global memory. There a set
+is answered from its bitmap, one load a row, when it has one; the rule
+(``prepare_program``): every set of a program whose codes are past
+``SHARED_PROGRAM_BYTES`` gets a bitmap over [0, its largest code] when
+that takes at most ``BITMAP_MAX_BYTES``, and is searched otherwise.
 """
 from __future__ import annotations
 
@@ -40,6 +47,11 @@ MAX_STACK = 8
 # memory won at 12 KB, tied at 48 KB and lost at 120 KB, where a block
 # that stages the program leaves room for one block per SM (PERF.md).
 SHARED_PROGRAM_BYTES = 48 * 1024
+
+# The largest membership bitmap a set of such a program gets (2**25
+# codes): it stays resident in the H100's 50 MB L2 beside the rows
+# streaming through. A set whose largest code is past that is searched.
+BITMAP_MAX_BYTES = 4 << 20
 
 
 def program_eval_rows(cols, opcodes, arg0, arg1, codesets):
@@ -90,7 +102,8 @@ class Program:
     ``arg1`` and ``codesets`` are the original form, which the plain
     version evaluates; iterating a Program yields them, so
     ``filter_scan(cols, *program)`` still works. ``words`` is the kernels'
-    form (see the module docstring)."""
+    form (see the module docstring), ``n_bitmap_words`` the words of its
+    bitmaps."""
 
     opcodes: torch.Tensor
     arg0: torch.Tensor
@@ -100,6 +113,7 @@ class Program:
     n_ops: int
     n_sets: int
     n_codes: int
+    n_bitmap_words: int
     max_field: int  # largest field id a push reads (-1: none)
 
     @property
@@ -120,20 +134,34 @@ class Program:
 
     def staged_words(self, budget_bytes: int) -> int:
         """Words of ``words`` a block stages in shared memory when it may
-        take ``budget_bytes`` there: all of them while the program fits the
-        budget and SHARED_PROGRAM_BYTES, else the header alone (the codes
-        are searched in global memory), else none."""
-        if self.nbytes <= min(budget_bytes, SHARED_PROGRAM_BYTES):
+        take ``budget_bytes`` there, each time with the S+1 bitmap offsets
+        after them: the program and its codes while they fit the budget and
+        SHARED_PROGRAM_BYTES, else the header alone (the codes are read in
+        global memory), else none."""
+        offsets = 4 * (self.n_sets + 1)
+        if self.nbytes + offsets <= min(budget_bytes, SHARED_PROGRAM_BYTES):
             return self.header_words + self.n_codes
-        if 4 * self.header_words <= budget_bytes:
+        if 4 * self.header_words + offsets <= budget_bytes:
             return self.header_words
         return 0
+
+
+def _bitmap(codes: np.ndarray) -> np.ndarray:
+    """int32 words of the membership bitmap of sorted non-negative codes:
+    bit c % 32 of word c // 32 for each code c."""
+    word = codes >> 5
+    starts = np.flatnonzero(np.r_[True, word[1:] != word[:-1]])
+    out = np.zeros(int(codes[-1]) // 32 + 1, np.uint32)
+    out[word[starts]] = np.bitwise_or.reduceat(np.uint32(1) << (codes & 31).astype(np.uint32),
+                                               starts)
+    return out.view(np.int32)
 
 
 def prepare_program(opcodes, arg0, arg1, codesets, device) -> Program:
     """Stage a program given as numpy arrays (opcodes/arg0/arg1 (P,),
     codesets (S, M) padded with -1) on ``device`` in one host-to-device
-    copy: the original form and the kernels' sorted form."""
+    copy: the original form and the kernels' form — the sorted codes, and
+    each set's bitmap where the module docstring's rule gives it one."""
     opc, a0, a1 = (np.ascontiguousarray(x, dtype=np.int32).reshape(-1)
                    for x in (opcodes, arg0, arg1))
     cs = np.ascontiguousarray(codesets, dtype=np.int32)
@@ -152,12 +180,21 @@ def prepare_program(opcodes, arg0, arg1, codesets, device) -> Program:
     off[1:] = np.cumsum([len(r) for r in rows])
     if off[-1] >= 2**31:
         raise ValueError(f"{off[-1]} codes do not fit int32 offsets")
-    words = np.concatenate([opc, a0, a1, off.astype(np.int32), *rows]).astype(np.int32)
+    head = 3 * p + s + 1 + int(off[-1])  # the program and its codes
+    bitmaps = [np.empty(0, np.int32)] * s
+    if 4 * (head + s + 1) > SHARED_PROGRAM_BYTES:
+        bitmaps = [_bitmap(r) if len(r) and 4 * (int(r[-1]) // 32 + 1) <= BITMAP_MAX_BYTES
+                   else np.empty(0, np.int32) for r in rows]
+    boff = head + s + 1 + np.concatenate([[0], np.cumsum([len(b) for b in bitmaps], dtype=np.int64)])
+    if boff[-1] >= 2**31:
+        raise ValueError(f"a program of {boff[-1]} words does not fit int32 offsets")
+    words = np.concatenate([opc, a0, a1, off.astype(np.int32), *rows,
+                            boff.astype(np.int32), *bitmaps]).astype(np.int32)
     flat = torch.from_numpy(np.concatenate([opc, a0, a1, cs.ravel(), words])).to(device)
     return Program(
         opcodes=flat[:p], arg0=flat[p:2 * p], arg1=flat[2 * p:3 * p],
         codesets=flat[3 * p:3 * p + cs.size].view(cs.shape), words=flat[3 * p + cs.size:],
-        n_ops=p, n_sets=s, n_codes=int(off[-1]),
+        n_ops=p, n_sets=s, n_codes=int(off[-1]), n_bitmap_words=int(boff[-1] - boff[0]),
         max_field=int(a0[pushes].max()) if pushes.any() else -1,
     )
 

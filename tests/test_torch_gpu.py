@@ -36,7 +36,13 @@ from repro_torch.kernels.aggregate_combine import (
     combine_sorted_counts,
     ops as agg_ops,
 )
-from repro_torch.kernels.combine_scan import combine_scan, combine_scan_ref, combine_segments
+from repro_torch.kernels.combine_scan import (
+    combine_groups,
+    combine_groups_ref,
+    combine_scan,
+    combine_scan_ref,
+    combine_segments,
+)
 from repro_torch.kernels.combine_scan import ops as combine_ops
 from repro_torch.kernels.filter_scan import program_tensors
 from repro_torch.kernels.merge_intersect import intersect_sorted
@@ -49,6 +55,8 @@ from repro_torch.models.attention import flash_attention, naive_attention
 from repro_torch.models.model import decode_step, forward_train, init_params, prefill
 from repro_torch.training.optimizer import OptConfig, adamw_init
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+from _torch_combine_cases import CASES, IN_FIELD, IN_UNIVERSE, case_rows, filter_program, in_codes
 
 pytestmark = pytest.mark.gpu
 
@@ -454,6 +462,64 @@ def test_combine_scan_host_op_on_the_card_matches_the_cpu(cuda):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
+
+
+BIG_UNIVERSE = 40_000
+
+
+@pytest.mark.parametrize("kind", ["trivial", "eq", "in", "in_bitmap", "in_search"])
+@pytest.mark.parametrize("case,scale", [(c, 1) for c in CASES] + [
+    (c, 512) for c in ("one_group", "singletons", "straddle", "empty_between", "extremes")])
+def test_combine_scan_forms_match_plain_versions(cuda, monkeypatch, case, scale, kind):
+    """combine_segments (per row) and combine_groups (per group), bit for
+    bit against their plain versions on every case of
+    tests/_torch_combine_cases.py; scale 512 takes them across many tiles
+    and every chunk of the grid (singletons: past the group buffer of a
+    chunk). in_bitmap and in_search: an In of 20,000 codes (80 KB, past
+    shared memory) answered from its bitmap, and searched in global
+    memory with no bitmap allowed."""
+    from repro_torch.kernels import program_eval
+
+    gids, vals, cols = case_rows(case, seed=scale, scale=scale)
+    codes = in_codes()
+    if kind in ("in_bitmap", "in_search"):
+        rng = np.random.default_rng(scale)
+        codes = in_codes(n_codes=20_000, universe=BIG_UNIVERSE)
+        col = cols[:, IN_FIELD]
+        cols[:, IN_FIELD] = np.where(col < 0, col, np.where(
+            col >= IN_UNIVERSE, BIG_UNIVERSE + 5, rng.integers(0, BIG_UNIVERSE, len(col))))
+        if kind == "in_search":
+            monkeypatch.setattr(program_eval, "BITMAP_MAX_BYTES", 0)
+    prog = filter_program(pf, kind[:2] if kind.startswith("in") else kind, codes)
+    program = program_tensors(prog, cuda)
+    assert (program.n_bitmap_words > 0) == (kind == "in_bitmap")
+    rows = [torch.from_numpy(x).to(cuda) for x in (gids, vals, cols)]
+    if kind.startswith("in_"):
+        assert torch.equal(filter_scan(rows[2], program), program_eval_rows(rows[2], *program))
+    for op in ("count", "sum", "min", "max"):
+        v = None if op == "count" else rows[1]
+        before = combine_ops.launches
+        got = combine_segments(rows[0], v, rows[2], program, op)
+        *groups, n = combine_groups(rows[0], v, rows[2], program, op)
+        torch.cuda.synchronize()
+        assert combine_ops.launches == before + (2 if len(gids) else 0)
+        want = combine_scan_ref(rows[0], rows[1], rows[2], *program, op)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (op, "rows")
+        *want_groups, m = combine_groups_ref(rows[0], rows[1], rows[2], *program, op)
+        assert n.dtype == m.dtype and int(n) == int(m), op
+        for g, w in zip(groups, want_groups):
+            assert g.dtype == w.dtype and torch.equal(g[:int(m)], w), (op, "groups")
+
+
+def test_combine_scan_kernel_refuses_misaligned_rows(cuda):
+    gids, vals, cols = (torch.from_numpy(x).to(cuda) for x in case_rows("straddle"))
+    program = program_tensors(filter_program(pf, "eq"), cuda)
+    for form in (combine_segments, combine_groups):
+        with pytest.raises(ValueError, match="16-byte"):
+            form(gids[1:], vals[1:], cols[1:], program, "sum")
+        with pytest.raises(ValueError, match="16-byte"):
+            form(gids[:-1], vals[1:], cols[:-1], program, "sum")
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
