@@ -12,6 +12,11 @@ next one:
     p_{i+1} <- p_i + b_i + eps
 
 On r_i == 0 k is kept and b grows geometrically by c.
+
+A batch reads the whole seconds [int(p_i), int(p_i + b_i)]. A range that
+ends less than eps short of t_stop is the last one (p_{i+1} passes
+t_stop), so it ends at t_stop: the reference's ends at p_i + b_i there,
+and its batches leave out the rows at t_stop.
 """
 from __future__ import annotations
 
@@ -80,8 +85,10 @@ class AdaptiveBatcher:
         return self._p > self.t_stop if self._i > 0 else False
 
     def next_range(self) -> Tuple[float, float]:
-        """Time range [p_i, p_i + b_i] for the next batch (inclusive)."""
-        return self._p, min(self._p + self._b, self.t_stop)
+        """Time range [p_i, p_i + b_i] for the next batch (inclusive),
+        to t_stop for the last."""
+        hi = self._p + self._b
+        return self._p, self.t_stop if hi + self.eps > self.t_stop else hi
 
     def update(self, runtime: float, rows: int) -> None:
         """Alg 1 UPDATE(T_i, r_i)."""

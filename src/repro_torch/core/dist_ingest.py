@@ -481,16 +481,17 @@ class TabletGroup:
         n = len(rts)
         if n == 0:
             return 0.0
-        tab = np.asarray(tab).astype(np.int64)
-        ar = self.programs.append_rows
-        # The per-chunk tablet counts the mirrors and flushes follow, here
-        # and, through the log, on every follower.
-        chunk = np.arange(n, dtype=np.int64) // ar
-        counts = np.bincount(chunk * self.n_group_tablets + tab,
-                             minlength=-(-n // ar) * self.n_group_tablets
-                             ).reshape(-1, self.n_group_tablets)
-        own = _own_rows(rts, cols, tab, self.lo, self.n_tablets, ar,
-                        whole=self.n_tablets == self.n_group_tablets)
+        with span("ingest.route", cat="ingest", rows=n, writer=writer_id, group=self.gid):
+            tab = np.asarray(tab).astype(np.int64)
+            ar = self.programs.append_rows
+            # The per-chunk tablet counts the mirrors and flushes follow,
+            # here and, through the log, on every follower.
+            chunk = np.arange(n, dtype=np.int64) // ar
+            counts = np.bincount(chunk * self.n_group_tablets + tab,
+                                 minlength=-(-n // ar) * self.n_group_tablets
+                                 ).reshape(-1, self.n_group_tablets)
+            own = _own_rows(rts, cols, tab, self.lo, self.n_tablets, ar,
+                            whole=self.n_tablets == self.n_group_tablets)
         with self.lock.hold("ingest_append"):
             blocked = self._append_booked(counts, *own, writer_id)
             self._log("append", self.gid, rts, cols, tab, counts, writer_id, self.n_tablets, ar)
@@ -508,7 +509,7 @@ class TabletGroup:
     def _append_booked(self, counts, packed, tab, starts, writer_id) -> float:  # holds: lock
         with span("ingest.append", cat="ingest", rows=int(counts.sum()), writer=writer_id,
                   group=self.gid) as sp:
-            blocked = self._append_rows(counts, packed, tab, starts)
+            blocked = self._append_rows(counts, packed, tab, starts, sp)
             sp.set(blocked_s=blocked)
         self._m_blocked.inc(blocked, writer=writer_id)
         if blocked > 0.0:
@@ -516,34 +517,43 @@ class TabletGroup:
             self._m_group_stall_events.inc(group=self.gid)
         return blocked
 
-    def _append_rows(self, counts, packed, tab, starts) -> float:  # holds: lock
+    def _append_rows(self, counts, packed, tab, starts, sp) -> float:  # holds: lock
         """Append chunk by chunk: counts (n_chunks, n_group_tablets) the
         batch's rows per chunk and tablet; packed (m, 1 + F) int32 the rows
         of this rank's tablets (rev_ts, then the codes), tab their tablet
-        ids among this rank's, chunk i at [starts[i], starts[i + 1])."""
+        ids among this rank's, chunk i at [starts[i], starts[i + 1]).
+        Sets on ``sp`` the batch's seconds in two phases, summed over its
+        chunks: ``plan_s`` (room checks, destinations, the host mirrors)
+        and ``enqueue_s`` (copies to the card and the append's launches);
+        minors and majors have spans of their own and count in neither."""
         pr = self.programs
         t, lo, m = self.n_tablets, self.lo, pr.mem_rows
         n_idx = len(pr.indexed_fids)
+        clock = time.perf_counter
+        c0 = clock()
         rows_dev = torch.from_numpy(packed).to(pr.device)  # one host-to-device copy
+        c1 = clock()
+        plan_s, enqueue_s = 0.0, c1 - c0
         blocked = 0.0
         for i, cb_g in enumerate(counts):
             # Exact room check from the host fill mirror: flush only when
             # some tablet's memtable would overflow.
             if np.any(self._fill + cb_g > m):
+                plan_s += clock() - c1
                 if np.any((self._fill > 0) & (self._runs_host >= pr.max_runs)):
                     # No free run slot for a tablet that must flush: a major
                     # first, blocking this writer (backpressure) until the
                     # card has run it.
                     t0 = time.perf_counter()
                     with self.lock.reowner("fold_increment"):
-                        with span("ingest.major", cat="ingest", group=self.gid) as sp:
+                        with span("ingest.major", cat="ingest", group=self.gid):
                             self._run_major()
-                            sp.fence(self.state["ev_base_n"])
-                        self._fence()
+                            self._fence()
                     blocked += time.perf_counter() - t0
                     self._m_folds.inc(source="ingest")
                 with span("ingest.minor", cat="ingest", group=self.gid):
                     self._run_minor()
+                c1 = clock()
             if np.any(self._fill + cb_g > m):  # the flush above always makes room
                 raise RuntimeError("memtable has no room after a flush")
             # Destinations from the exact host fill mirror: a tablet's rows
@@ -557,9 +567,16 @@ class TabletGroup:
                 fill = self._fill[lo: lo + t][tab_c]
                 plan = np.stack([tab_c, tab_c * m + fill + j,
                                  tab_c * (n_idx * m) + n_idx * fill + j, cb[tab_c]])
+                c0 = clock()
                 pr.append(self.state, rows_dev[a:b], torch.from_numpy(plan).to(pr.device))
+                c2 = clock()
+                plan_s += c0 - c1
+                enqueue_s += c2 - c0
+                c1 = c2
             self._fill += cb_g
             self._rows_host += cb_g
+        plan_s += clock() - c1
+        sp.set(plan_s=plan_s, enqueue_s=enqueue_s, chunks=len(counts))
         self._dirty = True
         self._gen["mem"] += 1
         return blocked

@@ -1173,12 +1173,11 @@ class DistQueryProcessor:
                 stats.index_keys_scanned += n_cands
             if not n_trunc:
                 return aggs, cnts
-        with span("query.aggregate_scan", cat="query") as sp:
+        with span("query.aggregate_scan", cat="query"):
             # keypack packs host-side numpy scalars — no device value, no sync.
             rts_lo = int(keypack.rev_ts(t1))  # reprolint: disable=no-sync-in-hot-path
             rts_hi = int(keypack.rev_ts(t0)) + 1  # reprolint: disable=no-sync-in-hot-path
             aggs, cnts = aggregate_step(d, program, value_table, grouping, rts_lo, rts_hi)
-            sp.fence(cnts)
         return aggs, cnts
 
     def execute_batched(self, tree, t_start: int, t_stop: int,

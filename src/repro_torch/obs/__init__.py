@@ -37,7 +37,6 @@ from .trace import (
     enabled,
     get_tracer,
     span,
-    traced,
 )
 from .export import (
     chrome_trace,
@@ -91,7 +90,6 @@ __all__ = [
     "span",
     "summary",
     "to_prometheus_text",
-    "traced",
     "validate_chrome_trace",
     "write_chrome_trace",
     "write_metrics_json",

@@ -23,7 +23,17 @@ passes through) by recording a CUDA event on each one's device's current
 stream and waiting on that event. The event follows the tensor's producer
 on the stream, so the wait covers the span's own work and whatever was
 queued before it, never work that other threads queue later. The wait is
-charged to the span as ``fence_s``. An error from the card propagates.
+charged to the span as ``fence_s``, and each call counts in ``fence_n``
+(the span's read-backs: a fence belongs right before a host read of
+``x``, which waits for the card with tracing off too). An error from the
+card propagates.
+
+RECORDS: each kept span becomes a dict whose ``t0`` is seconds after the
+tracer's ``epoch`` (a ``time.perf_counter`` reading, reset by
+``clear()``); :meth:`Tracer.records_between` hands them out on the
+absolute ``perf_counter`` clock. A full deque pushes out its oldest
+record for each new one, and ``Tracer.dropped`` counts those since the
+last ``clear()``.
 
 SAMPLING: ``enable(sample=1/N)`` keeps every Nth ROOT span (per-process
 deterministic counter) and drops the rest; children always follow their
@@ -40,11 +50,10 @@ keeps is forwarded to it.
 
 from __future__ import annotations
 
-import functools
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import torch
 
@@ -58,7 +67,6 @@ __all__ = [
     "enabled",
     "get_tracer",
     "span",
-    "traced",
 ]
 
 
@@ -133,7 +141,8 @@ class _DropSpan:
 
 
 class _Span:
-    __slots__ = ("tracer", "name", "cat", "args", "sid", "parent", "tid", "t0", "fence_s")
+    __slots__ = ("tracer", "name", "cat", "args", "sid", "parent", "tid", "t0", "fence_s",
+                 "fence_n")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args: Dict[str, Any]) -> None:
         self.tracer = tracer
@@ -145,6 +154,7 @@ class _Span:
         self.tid = 0
         self.t0 = 0.0
         self.fence_s = 0.0
+        self.fence_n = 0
 
     def __enter__(self) -> "_Span":
         tr = self.tracer
@@ -166,11 +176,12 @@ class _Span:
 
     def fence(self, x: object) -> object:
         """Wait until the card has produced ``x`` (see the module
-        docstring); the wait is charged to this span as device time.
-        Returns ``x`` unchanged."""
+        docstring); the wait is charged to this span as device time and
+        the call counted as one read-back. Returns ``x`` unchanged."""
         t0 = time.perf_counter()
         _fence(x)
         self.fence_s += time.perf_counter() - t0
+        self.fence_n += 1
         return x
 
     def set(self, **kw: object) -> None:
@@ -182,6 +193,7 @@ class Tracer:
         self.enabled = False
         self.sample_n = 1  # keep every Nth root span (1 = keep all)
         self.records: Deque[Dict[str, Any]] = deque(maxlen=maxlen)
+        self.dropped = 0  # records the full deque pushed out since clear()
         self.epoch = time.perf_counter()
         self._sid = 0
         self._root_count = 0
@@ -224,6 +236,12 @@ class Tracer:
             self._tls.stack = st
         return st
 
+    def _append(self, rec: Dict[str, Any]) -> None:
+        with self._sid_lock:
+            if len(self.records) == self.records.maxlen:
+                self.dropped += 1
+            self.records.append(rec)
+
     def _note_thread(self, tid: int) -> None:
         if tid not in self._threads:
             with self._threads_lock:
@@ -240,9 +258,10 @@ class Tracer:
             "dur": dur,
             "args": sp.args,
         }
-        if sp.fence_s:
+        if sp.fence_n:
             rec["fence_s"] = sp.fence_s
-        self.records.append(rec)
+            rec["fence_n"] = sp.fence_n
+        self._append(rec)
         # Forward every kept record to the flight recorder (its window
         # stays continuous whether tracing is on or off); flight-native
         # sids start far above the tracer counter, so linkage inside a
@@ -300,7 +319,7 @@ class Tracer:
         if tid is None:
             tid = threading.get_ident()
         self._note_thread(tid)
-        self.records.append(
+        self._append(
             {
                 "name": name,
                 "cat": cat,
@@ -314,8 +333,23 @@ class Tracer:
         )
 
     def clear(self) -> None:
-        self.records.clear()
+        with self._sid_lock:
+            self.records.clear()
+            self.dropped = 0
         self.epoch = time.perf_counter()
+
+    def records_between(self, t0: float, t1: float) -> List[Dict[str, Any]]:
+        """Copies of the records that overlap [t0, t1] (``perf_counter``
+        readings), each with its ``start`` and ``end`` on that clock."""
+        with self._sid_lock:
+            recs = list(self.records)
+        out = []
+        for r in recs:
+            start = self.epoch + r["t0"]
+            end = start + r["dur"]
+            if end >= t0 and start <= t1:
+                out.append(dict(r, start=start, end=end))
+        return out
 
     def thread_names(self) -> Dict[int, str]:
         with self._threads_lock:
@@ -340,24 +374,6 @@ def span(name: str, cat: str = "", **args: object):
             return fr.span(name, cat, dict(args) if args else None)
         return _NULL
     return _tracer.span(name, cat, **args)
-
-
-def traced(name: Optional[str] = None, cat: str = "") -> Callable:
-    """Decorator form of :func:`span`."""
-
-    def deco(fn: Callable) -> Callable:
-        label = name or fn.__qualname__
-
-        @functools.wraps(fn)
-        def wrapper(*a: object, **kw: object):
-            if not _tracer.enabled:
-                return fn(*a, **kw)
-            with _tracer.span(label, cat):
-                return fn(*a, **kw)
-
-        return wrapper
-
-    return deco
 
 
 def enable(sample: Optional[float] = None) -> None:

@@ -127,6 +127,23 @@ def test_alg1_batches_match_reference(seed):
         AdaptiveBatcher(10, 5, 1.0)
 
 
+@pytest.mark.parametrize("b0", [99.5, 40.5, 0.25, 7.0])
+def test_batches_read_every_second_to_t_stop(b0):
+    """The seconds the batches read, [int(lo), int(hi)] each, tile
+    [t_start, t_stop] once, also where a range ends less than eps short
+    of t_stop (b0 = 99.5 on [0, 100]: the reference's batches stop at
+    second 99 there)."""
+    rng = np.random.default_rng(int(b0 * 4))
+    for t_stop in (0, 1, 100, 14400):
+        pb = AdaptiveBatcher(0, t_stop, b0)
+        seconds = []
+        while not pb.done:
+            lo, hi = pb.next_range()
+            seconds.extend(range(int(lo), int(hi) + 1))
+            pb.update(float(rng.uniform(1e-3, 40.0)), int(rng.integers(0, 50)))
+        assert seconds == list(range(t_stop + 1))
+
+
 @pytest.mark.parametrize("i", range(7))
 def test_filter_plans_match_reference(i):
     js, ps = JaxEventStore(jax_schema()), EventStore(web_proxy_schema(), device="cpu")

@@ -328,16 +328,9 @@ def test_span_nesting_parent_linkage_and_thread_names():
             si.set(result=9)
     with obs.span("sibling", cat="t"):
         pass
-
-    @obs.traced("deco.fn", cat="t")
-    def fn(x):
-        return x + 1
-
-    assert fn(1) == 2
     obs.disable()
-    assert fn(2) == 3  # disabled: no record
     recs = {r["name"]: r for r in obs.get_tracer().records}
-    assert set(recs) == {"outer", "inner", "sibling", "deco.fn"}
+    assert set(recs) == {"outer", "inner", "sibling"}
     assert recs["inner"]["parent"] == recs["outer"]["sid"]
     assert recs["sibling"]["parent"] == 0 and recs["outer"]["parent"] == 0
     assert recs["inner"]["args"] == {"k": 3, "result": 9}
@@ -459,6 +452,56 @@ def test_fence_passes_values_through_unchanged():
     devices = {}
     ptrace._cuda_devices((t, [t], {"k": t}), devices)
     assert devices == {}
+
+
+def test_fence_counts_each_readback():
+    obs.enable()
+    with obs.span("three", cat="t") as sp:
+        for _ in range(3):
+            sp.fence(torch.ones(2))
+    with obs.span("none", cat="t"):
+        pass
+    obs.disable()
+    recs = {r["name"]: r for r in obs.get_tracer().records}
+    assert recs["three"]["fence_n"] == 3 and recs["three"]["fence_s"] >= 0.0
+    assert "fence_n" not in recs["none"] and "fence_s" not in recs["none"]
+
+
+def test_records_between_gives_spans_on_the_host_clock():
+    obs.enable()
+    with obs.span("before", cat="t"):
+        pass
+    a = time.perf_counter()
+    with obs.span("inside", cat="t"):
+        time.sleep(0.002)
+    b = time.perf_counter()
+    time.sleep(0.002)
+    with obs.span("after", cat="t"):
+        pass
+    obs.disable()
+    tr = obs.get_tracer()
+    recs = tr.records_between(a, b)
+    inside = next(r for r in recs if r["name"] == "inside")
+    assert a <= inside["start"] <= inside["end"] <= b
+    assert inside["end"] - inside["start"] == pytest.approx(inside["dur"])
+    assert "after" not in {r["name"] for r in recs}
+    assert all("start" not in r for r in tr.records)  # the deque's records stay as they were
+
+
+def test_dropped_counts_records_a_full_deque_pushes_out():
+    tr = ptrace.Tracer(maxlen=4)
+    tr.enabled = True
+    for i in range(5):
+        with tr.span(f"s{i}", cat="t"):
+            pass
+    tr.add_complete("lock/t", time.perf_counter(), 0.001, cat="lock")
+    assert tr.dropped == 2 and len(tr.records) == 4
+    assert [r["name"] for r in tr.records] == ["s2", "s3", "s4", "lock/t"]
+    tr.clear()
+    assert tr.dropped == 0 and not tr.records
+    with tr.span("fresh", cat="t"):
+        pass
+    assert tr.dropped == 0 and len(tr.records) == 1
 
 
 # ---------------------------------------------------------------- exporters

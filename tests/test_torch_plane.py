@@ -9,6 +9,8 @@ with the same dtype, and the counters must agree. The port runs on the
 CPU, so its merge and filter wrappers run their plain versions; the
 reference runs its jnp paths.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -20,10 +22,14 @@ from repro.core.dist_ingest import (
 )
 from repro.launch.mesh import make_dev_mesh
 
+from repro_torch import obs
+from repro_torch.core import AggregateSpec, Eq, TrueNode
 from repro_torch.core.carry import plane_state_from_numpy
-from repro_torch.core.dist_ingest import DistBatchWriter, DistIngestPlane
+from repro_torch.core.dist_ingest import DistBatchWriter, DistIngestPlane, TabletGroup
+from repro_torch.core.dist_query import DistQueryProcessor
 from repro_torch.core.schema import web_proxy_schema
 from repro_torch.core.store import EventStore
+from repro_torch.obs import trace as ptrace
 
 T_SPAN = 4 * 3600
 SIZES = dict(n_tablets=4, mem_rows=48, max_runs=2, append_rows=20)
@@ -216,3 +222,107 @@ def test_sharded_plane_is_left_for_a_later_slice():
     assert [g.lock.name for g in plane.groups] == ["plane_lock_g0", "plane_lock_g1"]
     with pytest.raises(RuntimeError, match="n_groups > 1"):
         plane.state
+
+
+# ------------------------------------------------------------------ spans
+@pytest.fixture
+def tracing():
+    """The port's tracer on and empty for one test, off and empty after."""
+    obs.disable()
+    obs.clear()
+    obs.enable()
+    yield obs.get_tracer()
+    obs.disable()
+    obs.clear()
+
+
+@pytest.fixture
+def counted_fences(monkeypatch):
+    """Every span fence, counted (the call still runs)."""
+    calls = []
+    real = ptrace._fence
+
+    def fence(x):
+        calls.append(x)
+        real(x)
+
+    monkeypatch.setattr(ptrace, "_fence", fence)
+    return calls
+
+
+def _rows(n, n_tablets, seed=3):
+    rng = np.random.default_rng(seed)
+    rts = rng.integers(0, 1 << 30, n).astype(np.int32)
+    cols = rng.integers(0, 50, (n, 12)).astype(np.int32)
+    return rts, cols, rng.integers(0, n_tablets, n)
+
+
+def test_ingest_records_route_and_append_phases(tracing):
+    plane = DistIngestPlane(12, capacity=4096, n_tablets=4, mem_rows=1024, max_runs=2,
+                            append_rows=64, device="cpu")
+    plane.ingest(*_rows(3 * 64 + 5, 4), writer_id=2)
+    by_name = {}
+    for r in tracing.records:
+        by_name.setdefault(r["name"], []).append(r)
+    (route,), (app,) = by_name["ingest.route"], by_name["ingest.append"]
+    assert route["args"] == {"rows": 197, "writer": 2, "group": 0}
+    assert {k: app["args"][k] for k in ("rows", "writer", "group")} == route["args"]
+    assert app["args"]["chunks"] == 4
+    plan_s, enqueue_s = app["args"]["plan_s"], app["args"]["enqueue_s"]
+    assert plan_s > 0 and enqueue_s > 0 and plan_s + enqueue_s <= app["dur"]
+    assert route["t0"] + route["dur"] <= app["t0"]  # routing ends before the lock
+    assert "ingest.minor" not in by_name and "ingest.major" not in by_name
+
+
+def test_tripped_major_is_one_span_holding_the_group_wait(tracing, counted_fences,
+                                                          monkeypatch):
+    waits = []
+    real = TabletGroup._fence
+
+    def group_fence(self):
+        waits.append(time.perf_counter())
+        real(self)
+
+    monkeypatch.setattr(TabletGroup, "_fence", group_fence)
+    plane = DistIngestPlane(12, capacity=4096, n_tablets=2, mem_rows=32, max_runs=1,
+                            append_rows=32, device="cpu")
+    plane.ingest(*_rows(256, 2), writer_id=0)
+    assert plane.telemetry()["major"].min() > 0
+    majors = [r for r in tracing.records if r["name"] == "ingest.major"]
+    assert len(majors) == len(waits) > 0
+    for r, t in zip(majors, waits):
+        start = tracing.epoch + r["t0"]
+        assert start <= t <= start + r["dur"]
+        assert "fence_n" not in r
+    assert counted_fences == []  # no span of the ingest path waits on the card
+    app = next(r for r in tracing.records if r["name"] == "ingest.append")
+    assert app["args"]["plan_s"] + app["args"]["enqueue_s"] <= app["dur"]
+
+
+# Spans whose fences each sit right before a host read of what they fence.
+READBACK_SPANS = {"query.density", "query.aggregate_index", "query.scan_range",
+                  "query.scan_index_range"}
+
+
+@pytest.mark.parametrize("use_index", [False, True], ids=["scan", "index"])
+def test_aggregate_fences_only_before_host_reads(tracing, counted_fences, use_index):
+    ts, vals = gen_events(5, 600)
+    store = EventStore(web_proxy_schema(), device="cpu")
+    plane = DistIngestPlane.for_store(store, capacity=1024, device="cpu", **SIZES)
+    w = DistBatchWriter(store, plane, batch_rows=150, writer_id=1)
+    w.add(ts, vals)
+    w.close()
+    proc = DistQueryProcessor(store, plane, device="cpu")
+    tree = Eq("status", "404") if use_index else TrueNode()
+    obs.clear()
+    del counted_fences[:]
+    res = proc.aggregate_range(AggregateSpec(group_by=("method",)), tree, 0, T_SPAN,
+                               use_index=use_index)
+    assert int(np.asarray(res.counts).sum()) == (
+        int(np.sum(np.asarray(vals["status"]) == "404")) if use_index else len(ts))
+    recs = list(tracing.records)
+    names = {r["name"] for r in recs}
+    assert ("query.aggregate_index" if use_index else "query.aggregate_scan") in names
+    fenced = {r["name"] for r in recs if r.get("fence_n")}
+    assert fenced <= READBACK_SPANS and "query.aggregate_scan" not in fenced
+    assert len(counted_fences) == sum(r.get("fence_n", 0) for r in recs)
